@@ -1,0 +1,140 @@
+"""The port's CUDA kernels against their plain versions, on a card.
+
+Every test here needs a CUDA card (marker ``cuda``) and skips without one;
+the file imports nothing of JAX so that it runs where only PyTorch is
+installed:
+
+  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: f32 2e-5; bf16 rtol 1.6e-2 (two bf16 ulps, since kernel and plain
+version both compute in f32 and round once) with atol 1e-4; compaction
+bit-exact; greedy tokens identical.
+"""
+import pytest
+import torch
+
+from repro_torch.configs import get
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.kv_compaction.ops import compact_kv_pool
+from repro_torch.kernels.kv_compaction.ref import compact_kv_pool_ref
+from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+from repro_torch.kernels.paged_attention.ref import \
+    paged_decode_attention_ref
+
+pytestmark = pytest.mark.cuda
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _tol(dt):
+    return dict(rtol=1.6e-2, atol=1e-4) if dt == BF16 else \
+        dict(rtol=2e-5, atol=2e-5)
+
+
+def _randn(gen, dev, dt, *shape):
+    return torch.randn(shape, generator=gen).to(dev, dt)
+
+
+def _perms(gen, dev, rows, nblk):
+    return torch.stack([torch.randperm(nblk, generator=gen)
+                        for _ in range(rows)]).to(dev, torch.int32)
+
+
+@pytest.mark.parametrize("B,nh,nkv,S,hd,dt,causal", [
+    (2, 4, 2, 256, 64, F32, True),
+    (1, 8, 8, 512, 128, BF16, True),
+    (2, 6, 2, 128, 64, BF16, True),
+    (1, 2, 1, 384, 64, F32, True),
+    (3, 4, 4, 128, 256, F32, True),
+    (1, 9, 3, 256, 64, BF16, True),
+    (1, 4, 4, 256, 64, F32, False),
+    (2, 9, 3, 200, 16, F32, True),      # ragged edge, narrow heads
+    (1, 9, 3, 2048, 64, BF16, True),    # the serving prefill shape
+])
+def test_flash_kernel_matches_plain(dev, B, nh, nkv, S, hd, dt, causal):
+    gen = torch.Generator().manual_seed(S + hd)
+    q = _randn(gen, dev, dt, B, nh, S, hd)
+    k, v = _randn(gen, dev, dt, B, nkv, S, hd), _randn(gen, dev, dt, B, nkv,
+                                                       S, hd)
+    n = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n + 1
+    torch.testing.assert_close(
+        out.float(), flash_attention_ref(q, k, v, causal=causal).float(),
+        **_tol(dt))
+
+
+@pytest.mark.parametrize("B,nh,nkv,nblk,bs,hd,dt", [
+    (2, 8, 2, 8, 16, 64, F32),
+    (3, 4, 4, 4, 32, 128, BF16),
+    (1, 16, 8, 16, 8, 64, BF16),
+    (4, 2, 2, 2, 64, 128, F32),
+    (8, 9, 3, 32, 64, 64, BF16),        # the serving decode shape
+    (8, 9, 3, 32, 64, 64, F32),
+])
+def test_paged_kernel_matches_plain(dev, B, nh, nkv, nblk, bs, hd, dt):
+    gen = torch.Generator().manual_seed(nblk * bs + hd)
+    q = _randn(gen, dev, dt, B, nh, hd)
+    pk = _randn(gen, dev, dt, B, nblk, bs, nkv, hd)
+    pv = _randn(gen, dev, dt, B, nblk, bs, nkv, hd)
+    table = _perms(gen, dev, B, nblk)
+    length = torch.randint(1, nblk * bs + 1, (B,), generator=gen)
+    length[0] = 0                       # empty: zeros
+    if B > 1:
+        length[1] = nblk * bs + 1       # a freed slot one past the pool
+    length = length.to(dev, torch.int32)
+    out = paged_decode_attention(q, pk, pv, table, length)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(out[0]) == 0
+    torch.testing.assert_close(
+        out.float(),
+        paged_decode_attention_ref(q, pk, pv, table, length).float(),
+        **_tol(dt))
+
+
+@pytest.mark.parametrize("shape,dt", [
+    ((240, 32, 64, 192), BF16),         # one compact() at the serving shape
+    ((3, 7, 16, 64), F32),
+])
+def test_compaction_kernel_is_bit_exact(dev, shape, dt):
+    gen = torch.Generator().manual_seed(sum(shape))
+    pool = _randn(gen, dev, dt, *shape)
+    table = _perms(gen, dev, shape[0], shape[1])
+    out, ident = compact_kv_pool(pool, table)
+    assert torch.equal(out, compact_kv_pool_ref(pool, table))
+    again, _ = compact_kv_pool(out, ident)
+    assert torch.equal(again, out)
+
+
+def test_card_engine_matches_cpu_engine(dev):
+    """f32 GQA smoke model: the engine on the card (three kernels) and on
+    the CPU (plain versions) give the same greedy tokens and layout."""
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import ServingEngine
+    cfg = get("smollm_135m", smoke=True).replace(
+        param_dtype="float32", kv_block_size=8, n_heads=9, n_kv_heads=3,
+        head_dim=16)
+    params = init_params(cfg, seed=0, device="cpu")
+    runs = []
+    for d in (dev, "cpu"):
+        eng = ServingEngine(cfg, params, max_slots=3, max_seq=64, seed=0,
+                            device=d)
+        reqs = [eng.submit(p, max_new=6) for p in
+                ([5, 9, 2, 7], [1, 2, 3], [11, 4, 6, 8, 10], [3, 3], [9, 1])]
+        eng.run_until_drained()
+        frag = eng.fragmentation()
+        eng.compact()
+        again = eng.submit([5, 9, 2, 7], max_new=6)
+        eng.run_until_drained()
+        runs.append(([r.out for r in reqs], frag, again.out))
+    assert runs[0] == runs[1]
