@@ -7,11 +7,13 @@ Run from the root of a checkout on a machine with one CUDA card.  It drives
 ``repro_torch`` only (nothing of JAX or of the JAX package ``repro``):
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the three CUDA C++ kernels from ``src/repro_torch/csrc`` and holds
-   each against its plain PyTorch version on the card, at the serving
-   path's shapes, in bf16 and f32 (compaction bit-exact), timing kernel,
-   plain version and, where one PyTorch call computes the same function,
-   that call;
+2. builds the CUDA C++ kernels from ``src/repro_torch/csrc`` (compaction,
+   split paged decode, and flash prefill by two routes: tensor-core
+   ``wgmma`` for bf16 at hd 64/128, CUDA-core otherwise) and holds each
+   against its plain PyTorch version on the card, at the serving path's
+   shapes, in bf16 and f32 (compaction bit-exact), timing kernel, plain
+   version and, where one PyTorch call computes the same function, that
+   call, beside the times the previous kernels had;
 3. serves full-width smollm_135m (bf16, 30 layers, random weights from the
    seed) from the paged KV pool: 24 requests, 8 slots, max_seq 2048,
    scrambled block tables, compact() after every 8 finished requests, and
@@ -36,7 +38,18 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12                                   # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}         # dense, no TF32
 FLUSH_BYTES = 64 << 20                                      # > 50 MB of L2
+SLEEP_CYCLES = 2_000_000    # ~1 ms of device spin: covers the enqueue
 DEVICE = "cuda"
+SLOTS, MAX_SEQ = 8, 2048    # the serving phase's slots and context
+# The previous paged and flash kernels' times (the CUDA-core flash kernel
+# and the unsplit paged kernel) at the same shapes, with the same timer and
+# inputs, on one H100 80GB HBM3 at 700 W: copied from PERF.md
+# (src/repro_torch/launch/kernel_ab.py measured them) and printed beside the
+# new kernels' times, never in the JSON record
+PREVIOUS_MS = {"paged_decode_attention": {"bfloat16": 0.17268095940351486,
+                                         "float32": 0.287671679854393},
+               "flash_attention": {"bfloat16": 0.3309792011976242,
+                                   "float32": 0.2774191990494728}}
 
 
 def card_line() -> str:
@@ -48,12 +61,15 @@ def card_line() -> str:
 
 def timed_ms(torch, fn, iters, flush):
     """Mean device time of ``fn`` over ``iters`` launches, each started with
-    a cold L2 (``flush`` overwrites more than the cache between them)."""
+    a cold L2 (``flush`` overwrites more than the cache between them).  A
+    device spin before the start event keeps the card busy while the host
+    enqueues ``fn``, so host dispatch stays out of the time."""
     fn()
     torch.cuda.synchronize()
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -71,27 +87,76 @@ def bound_ms(nbytes, flops, dtype):
         else "operations"
 
 
+def _randn(torch, gen, dt, dev, *shape):
+    return torch.randn(shape, generator=gen).to(dev, dt)
+
+
+def _perms(torch, gen, dev, rows, nblk):
+    return torch.stack([torch.randperm(nblk, generator=gen)
+                        for _ in range(rows)]).to(dev, torch.int32)
+
+
+def compaction_inputs(torch, cfg, seed, dt, dev):
+    """One compact() call's K pool (layers * slots flattened) and tables."""
+    gen = torch.Generator().manual_seed(seed)
+    nblk = MAX_SEQ // cfg.kv_block_size
+    pool = _randn(torch, gen, dt, dev, cfg.n_layers * SLOTS, nblk,
+                  cfg.kv_block_size, cfg.n_kv_heads * cfg.hd)
+    return pool, _perms(torch, gen, dev, pool.shape[0], nblk)
+
+
+def paged_inputs(torch, cfg, seed, dt, dev):
+    """One layer of one lockstep decode step: ragged lengths, with an empty
+    slot and a freed slot one past the pool.  (q, pool_k, pool_v, table,
+    length)"""
+    gen = torch.Generator().manual_seed(seed + 1)
+    nblk = MAX_SEQ // cfg.kv_block_size
+    pool = (SLOTS, nblk, cfg.kv_block_size, cfg.n_kv_heads, cfg.hd)
+    q = _randn(torch, gen, dt, dev, SLOTS, cfg.n_heads, cfg.hd)
+    pk, pv = _randn(torch, gen, dt, dev, *pool), _randn(torch, gen, dt, dev,
+                                                        *pool)
+    table = _perms(torch, gen, dev, SLOTS, nblk)
+    length = torch.randint(1, MAX_SEQ, (SLOTS,), generator=gen)
+    length[0], length[1] = 0, MAX_SEQ + 1
+    return q, pk, pv, table, length.to(dev, torch.int32)
+
+
+def flash_inputs(torch, seed, dt, dev, nh, nkv, hd):
+    """One layer of one admission padded to MAX_SEQ: (q, k, v)."""
+    gen = torch.Generator().manual_seed(seed + 2)
+    return (_randn(torch, gen, dt, dev, 1, nh, MAX_SEQ, hd),
+            _randn(torch, gen, dt, dev, 1, nkv, MAX_SEQ, hd),
+            _randn(torch, gen, dt, dev, 1, nkv, MAX_SEQ, hd))
+
+
+def flash_shapes(cfg, dt_name):
+    """(nh, nkv, hd) timed: smollm_135m's heads, and in bf16 also 32/8 heads
+    at hd 128 (the next dense configs' heads) on the same route."""
+    return [(cfg.n_heads, cfg.n_kv_heads, cfg.hd)] + (
+        [(32, 8, 128)] if dt_name == "bfloat16" else [])
+
+
 def check_kernels(torch, seed):
     """Phase 2: every kernel against its plain version at the serving
     path's shapes.  Returns {kernel: {dtype: numbers}}."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ops import WGMMA_ROW_REL, \
+        flash_attention, route, row_relative_error
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref, \
+        flash_attention_tiled_ref
     from repro_torch.kernels.kv_compaction.ops import compact_kv_pool
     from repro_torch.kernels.kv_compaction.ref import compact_kv_pool_ref
     from repro_torch.kernels.paged_attention.ops import \
-        paged_decode_attention
+        paged_decode_attention, split_plan
     from repro_torch.kernels.paged_attention.ref import \
         paged_decode_attention_ref
 
     cfg = get("smollm_135m")
     nh, nkv, hd, bs = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.kv_block_size
-    slots, max_seq = 8, 2048
-    nblk = max_seq // bs
+    nblk = MAX_SEQ // bs
     dev = torch.device(DEVICE)
-    gen = torch.Generator().manual_seed(seed)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     res = {"compact_kv_pool": {}, "paged_decode_attention": {},
            "flash_attention": {}}
@@ -104,16 +169,7 @@ def check_kernels(torch, seed):
             dict(rtol=2e-5, atol=2e-5)
         item = torch.tensor([], dtype=dt).element_size()
 
-        def randn(*shape):
-            return torch.randn(shape, generator=gen).to(dev, dt)
-
-        def perms(rows):
-            return torch.stack([torch.randperm(nblk, generator=gen)
-                                for _ in range(rows)]).to(dev, torch.int32)
-
-        # compaction: one compact() call's K pool, reps*slots flattened
-        pool = randn(cfg.n_layers * slots, nblk, bs, nkv * hd)
-        table = perms(pool.shape[0])
+        pool, table = compaction_inputs(torch, cfg, seed, dt, dev)
         out, _ = compact_kv_pool(pool, table)
         plain = compact_kv_pool_ref(pool, table)
         torch.cuda.synchronize()
@@ -133,62 +189,99 @@ def check_kernels(torch, seed):
             bound_ms=b_ms, bound_by=b_by)
         del pool, plain, out, idx
 
-        # paged decode: one layer of one lockstep step; ragged lengths,
-        # including an empty slot and a freed slot one past the pool
-        q = randn(slots, nh, hd)
-        pk, pv = randn(slots, nblk, bs, nkv, hd), randn(slots, nblk, bs,
-                                                         nkv, hd)
-        table = perms(slots)
-        length = torch.randint(1, max_seq, (slots,), generator=gen)
-        length[0], length[1] = 0, max_seq + 1
-        length = length.to(dev, torch.int32)
+        q, pk, pv, table, length = paged_inputs(torch, cfg, seed, dt, dev)
         out = paged_decode_attention(q, pk, pv, table, length)
         plain = paged_decode_attention_ref(q, pk, pv, table, length)
         torch.cuda.synchronize()
         torch.testing.assert_close(out.float(), plain.float(), **tol)
         if out[0].abs().max().item() != 0.0:
             raise AssertionError("paged decode at length 0 is not zero")
+        again = paged_decode_attention(q, pk, pv, table, length)
+        if not torch.equal(again, out):
+            raise AssertionError("paged decode: two launches differ")
+        bps, nsplit, n_ws = split_plan(SLOTS, nh, nkv, nblk, bs, hd)
+        print(f"[kernel] paged_decode_attention {dt_name}: {bps} block(s) "
+              f"per split, {nsplit} splits, grid {nsplit * nkv * SLOTS} "
+              f"CTAs + merge {nkv * SLOTS} CTAs, workspace {4 * n_ws} "
+              f"bytes")
         valid = int(length.clamp(max=nblk * bs).sum())
         nbytes = (2 * valid * nkv * hd * item + 2 * q.numel() * item
-                  + 4 * (table.numel() + slots))
+                  + 4 * (table.numel() + SLOTS))
         flops = 4 * valid * nh * hd
         b_ms, b_by = bound_ms(nbytes, flops, dt_name)
         res["paged_decode_attention"][dt_name] = dict(
             max_abs_err=(out.float() - plain.float()).abs().max().item(),
-            shape=list(pk.shape), lengths=length.tolist(),
+            shape=list(pk.shape), lengths=length.tolist(), splits=nsplit,
+            workspace_bytes=4 * n_ws,
             ms=timed_ms(torch, lambda: paged_decode_attention(
                 q, pk, pv, table, length), 50, flush),
             plain_ms=timed_ms(torch, lambda: paged_decode_attention_ref(
                 q, pk, pv, table, length), 10, flush),
             library_ms=None, bound_ms=b_ms, bound_by=b_by)
-        del pk, pv, out, plain
+        del pk, pv, out, plain, again
 
-        # flash prefill: one layer of one admission, padded to max_seq
-        q = randn(1, nh, max_seq, hd)
-        k, v = randn(1, nkv, max_seq, hd), randn(1, nkv, max_seq, hd)
-        out = flash_attention(q, k, v)
-        plain = flash_attention_ref(q, k, v)
-        torch.cuda.synchronize()
-        torch.testing.assert_close(out.float(), plain.float(), **tol)
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * item
-        flops = 4 * nh * hd * max_seq * (max_seq + 1) // 2
-        b_ms, b_by = bound_ms(nbytes, flops, dt_name)
-        res["flash_attention"][dt_name] = dict(
-            max_abs_err=(out.float() - plain.float()).abs().max().item(),
-            shape=list(q.shape),
-            ms=timed_ms(torch, lambda: flash_attention(q, k, v), 20, flush),
-            plain_ms=timed_ms(torch, lambda: flash_attention_ref(q, k, v), 5,
-                              flush),
-            library_ms=timed_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), 20, flush),
-            bound_ms=b_ms, bound_by=b_by)
-        del q, k, v, out, plain
+        for f_nh, f_nkv, f_hd in flash_shapes(cfg, dt_name):
+            q, k, v = flash_inputs(torch, seed, dt, dev, f_nh, f_nkv, f_hd)
+            out = flash_attention(q, k, v)
+            plain = flash_attention_ref(q, k, v)
+            torch.cuda.synchronize()
+            err = (out.float() - plain.float()).abs().max().item()
+            f_route = route(dt, f_hd)
+            if f_route == "wgmma":
+                # P rounded to bf16 before P @ V, which flash_attention_ref
+                # does not do: each row against that plain version run in
+                # f32 (WGMMA_ROW_REL, kernels/flash_attention/ops.py).  The
+                # counts show the elementwise limit failing against the
+                # plain version in bf16, and against the tiled one, which
+                # rounds P too, where a P value lands on the other side of a
+                # bf16 rounding boundary than in the kernel
+                row_rel = row_relative_error(out, flash_attention_ref(
+                    q.float(), k.float(), v.float()))
+                tiled = flash_attention_tiled_ref(q, k, v).float()
+                off_plain = int((~torch.isclose(out.float(), plain.float(),
+                                                **tol)).sum())
+                off_tiled = int((~torch.isclose(out.float(), tiled,
+                                                **tol)).sum())
+                print(f"[kernel] flash_attention {dt_name} hd {f_hd} wgmma: "
+                      f"row error {row_rel} of the row's max |plain| "
+                      f"against the plain version in f32 (limit "
+                      f"{WGMMA_ROW_REL}); elements outside rtol "
+                      f"{tol['rtol']} / atol {tol['atol']}: {off_plain} "
+                      f"against the plain version in bf16 (max |err| "
+                      f"{err}), {off_tiled} against the tiled one (max "
+                      f"|err| {(out.float() - tiled).abs().max().item()}), "
+                      f"of {out.numel()}")
+                del tiled
+                if not row_rel <= WGMMA_ROW_REL:
+                    raise AssertionError(f"flash {dt_name} hd {f_hd}: row "
+                                         f"error {row_rel} > {WGMMA_ROW_REL}")
+            else:
+                torch.testing.assert_close(out.float(), plain.float(), **tol)
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * item
+            flops = 4 * f_nh * f_hd * MAX_SEQ * (MAX_SEQ + 1) // 2
+            b_ms, b_by = bound_ms(nbytes, flops, dt_name)
+            key = dt_name if f_hd == hd else f"{dt_name}_hd{f_hd}"
+            res["flash_attention"][key] = dict(
+                max_abs_err=err, shape=list(q.shape), route=f_route,
+                ms=timed_ms(torch, lambda: flash_attention(q, k, v), 20,
+                            flush),
+                plain_ms=timed_ms(torch, lambda: flash_attention_ref(q, k, v),
+                                  5, flush),
+                library_ms=timed_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True), 20, flush),
+                bound_ms=b_ms, bound_by=b_by)
+            del q, k, v, out, plain
     for name, by_dt in res.items():
         for dt_name, r in by_dt.items():
-            print(f"[kernel] {name} {dt_name} {r['shape']}: "
+            prev = PREVIOUS_MS.get(name, {}).get(dt_name)
+            print(f"[kernel] {name} {dt_name} {r['shape']}"
+                  f"{' route ' + r['route'] if 'route' in r else ''}: "
                   f"kernel_ms={r['ms']} plain_ms={r['plain_ms']} "
                   f"library_ms={r['library_ms']} bound_ms={r['bound_ms']} "
-                  f"({r['bound_by']}) max_abs_err={r['max_abs_err']}")
+                  f"({r['bound_by']}) max_abs_err={r['max_abs_err']}"
+                  + (f" [previous kernel: {prev} ms, copied from PERF.md]"
+                     if prev else ""))
     return res
 
 
@@ -197,6 +290,7 @@ def serve_full_width(torch, seed, wrappers):
     import numpy as np
 
     from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention.ops import route
     from repro_torch.serve.engine import ServingEngine
     from repro_torch.utils import tree_bytes
 
@@ -241,13 +335,17 @@ def serve_full_width(torch, seed, wrappers):
     if not all(launches.values()):
         raise AssertionError(f"a kernel never ran on the main path: "
                              f"{launches}")
+    prefill_route = route(getattr(torch, cfg.param_dtype), cfg.hd)
+    if prefill_route != "wgmma":
+        raise AssertionError(f"bf16 prefill takes the {prefill_route} route")
     new_tokens = sum(len(r.out) - 1 for r in eng.finished)
     print(f"[serve] params {tree_bytes(eng.params)} bytes, KV cache "
           f"{tree_bytes(eng.caches)} bytes on {eng.device}")
     print(f"[serve] smollm_135m full width bf16: {len(eng.finished)} "
           f"requests, {new_tokens} decoded tokens + {len(prompts)} prefills "
           f"in {dt} s = {(new_tokens + len(prompts)) / dt} tok/s, "
-          f"{eng.decode_steps} lockstep steps, launches {launches}")
+          f"{eng.decode_steps} lockstep steps, launches {launches}, "
+          f"prefill route {prefill_route}")
     # a prompt decoded again over the compacted pool gives the same tokens
     first = min(eng.finished, key=lambda r: r.rid)
     again = eng.submit(first.prompt, max_new=64)
@@ -374,18 +472,21 @@ def main() -> int:
     launches, tok_s = serve_full_width(torch, args.seed, wrappers)
     card_matches_cpu(torch, args.seed)
 
+    from repro_torch.kernels.flash_attention.ops import ROUTES
     kernels = []
     for name, src, replaces in (
             ("compact_kv_pool", "kv_compaction",
              "src/repro/kernels/kv_compaction/kernel.py:27"),
             ("paged_decode_attention", "paged_attention",
              "src/repro/kernels/paged_attention/kernel.py:72"),
-            ("flash_attention", "flash_attention",
+            ("flash_attention", None,
              "src/repro/kernels/flash_attention/kernel.py:76")):
         bf, f32 = res[name]["bfloat16"], res[name]["float32"]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{src}.cu", "replaces": replaces,
+            "source": "src/repro_torch/csrc/"
+                      f"{src or ROUTES[bf['route']][0]}.cu",
+            "replaces": replaces,
             "launches": launches[name], "max_abs_err": bf["max_abs_err"],
             "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
@@ -393,7 +494,22 @@ def main() -> int:
             "shape": bf["shape"],
             "float32": {k: f32[k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by",
-                                            "library_ms")}})
+                                            "library_ms")}}
+        if name == "paged_decode_attention":
+            entry["splits"] = bf["splits"]
+            entry["workspace_bytes"] = bf["workspace_bytes"]
+        if name == "flash_attention":
+            # the kernel each (dtype, hd) took, by route; "route" above is
+            # the language (CUDA C++) of both
+            entry["routes"] = {
+                k: {"route": r["route"], "hd": r["shape"][-1],
+                    "source": f"src/repro_torch/csrc/"
+                              f"{ROUTES[r['route']][0]}.cu",
+                    **{f: r[f] for f in ("shape", "max_abs_err", "ms",
+                                         "plain_ms", "bound_ms", "bound_by",
+                                         "library_ms")}}
+                for k, r in res[name].items()}
+        kernels.append(entry)
     print(f"[done] {time.perf_counter() - t_start} s, serving {tok_s} tok/s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,20 @@
-// Causal GQA flash attention (forward), used for prefill, on Hopper.
+// Causal GQA flash attention (forward), used for prefill, on Hopper: the
+// CUDA-core route.
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas (body _flash_kernel)
-// of src/repro/kernels/flash_attention/kernel.py:
+// of src/repro/kernels/flash_attention/kernel.py for f32 inputs (any head
+// dim) and bf16 inputs with hd 16 or 256; bf16 with hd 64 or 128 takes the
+// tensor-core route of flash_attention_wgmma.cu.  The Python wrapper chooses
+// by dtype and head dim alone.  f32 stays here, on f32 FMAs, because the
+// tensor cores' TF32 would not hold the f32 result to 2e-5.  It computes:
 //   q (B, nh, Sq, hd); k, v (B, nkv, Skv, hd); out (B, nh, Sq, hd) in q's
 //   dtype.  Query head h reads KV head h // (nh / nkv); scale hd ** -0.5;
 //   softmax in f32; under `causal`, key c is visible to query r iff c <= r
 //   (both counted from position 0).
 //
 // Bound: at the serving shape (S = 2048, hd = 64) each K/V byte feeds ~S
-// FLOPs, so the kernel is bound by operations, not bytes.  This first kernel
-// runs them as f32 FMAs on the CUDA cores (67 TFLOP/s peak), not on the
-// tensor cores (989 TFLOP/s bf16); wgmma with TMA-fed tiles is later work.
+// FLOPs, so the kernel is bound by operations, not bytes.  This kernel runs
+// them as f32 FMAs on the CUDA cores (67 TFLOP/s peak).
 // Design: one CUDA block per (b * nh + h, 64-row query tile), looping over
 // 64-row KV tiles up to the diagonal (the TPU grid's sequential KV axis
 // becomes this loop; heavy tiles are scheduled first).  Q, K, V and P tiles

@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-lineinfo"]
+              "-lineinfo", "-ldl"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[tuple, ctypes._CFuncPtr] = {}

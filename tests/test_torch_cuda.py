@@ -8,17 +8,22 @@ installed:
 
 Tolerances: f32 2e-5; bf16 rtol 1.6e-2 (two bf16 ulps, since kernel and plain
 version both compute in f32 and round once) with atol 1e-4; compaction
-bit-exact; greedy tokens identical.
+bit-exact; greedy tokens identical.  bf16 flash on the wgmma route rounds P
+to bf16 before P @ V, which flash_attention_ref does not: each output row is
+held to WGMMA_ROW_REL of its largest value in the plain version run in f32
+(see kernels/flash_attention/ops.py).
 """
 import pytest
 import torch
 
 from repro_torch.configs import get
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import WGMMA_ROW_REL, \
+    flash_attention, route, row_relative_error
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.kv_compaction.ops import compact_kv_pool
 from repro_torch.kernels.kv_compaction.ref import compact_kv_pool_ref
-from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+from repro_torch.kernels.paged_attention.ops import paged_decode_attention, \
+    split_plan
 from repro_torch.kernels.paged_attention.ref import \
     paged_decode_attention_ref
 
@@ -40,6 +45,17 @@ def _tol(dt):
         dict(rtol=2e-5, atol=2e-5)
 
 
+def _check_flash(out, q, k, v, causal):
+    if route(q.dtype, q.shape[-1]) == "wgmma":
+        plain = flash_attention_ref(q.float(), k.float(), v.float(),
+                                    causal=causal)
+        assert row_relative_error(out, plain) <= WGMMA_ROW_REL
+    else:
+        torch.testing.assert_close(
+            out.float(), flash_attention_ref(q, k, v, causal=causal).float(),
+            **_tol(q.dtype))
+
+
 def _randn(gen, dev, dt, *shape):
     return torch.randn(shape, generator=gen).to(dev, dt)
 
@@ -59,6 +75,14 @@ def _perms(gen, dev, rows, nblk):
     (1, 4, 4, 256, 64, F32, False),
     (2, 9, 3, 200, 16, F32, True),      # ragged edge, narrow heads
     (1, 9, 3, 2048, 64, BF16, True),    # the serving prefill shape
+    # wgmma route: Sq not a multiple of the 64-row tile, GQA 32/8, hd 128
+    (1, 32, 8, 300, 128, BF16, True),
+    (2, 9, 3, 200, 64, BF16, True),
+    (1, 9, 3, 200, 64, BF16, False),    # non-causal, ragged
+    (1, 32, 8, 2048, 128, BF16, True),  # the next dense configs' heads
+    # cuda-core route in bf16: hd 16 and 256
+    (2, 9, 3, 200, 16, BF16, True),
+    (1, 4, 2, 192, 256, BF16, True),
 ])
 def test_flash_kernel_matches_plain(dev, B, nh, nkv, S, hd, dt, causal):
     gen = torch.Generator().manual_seed(S + hd)
@@ -69,9 +93,8 @@ def test_flash_kernel_matches_plain(dev, B, nh, nkv, S, hd, dt, causal):
     out = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == n + 1
-    torch.testing.assert_close(
-        out.float(), flash_attention_ref(q, k, v, causal=causal).float(),
-        **_tol(dt))
+    assert torch.isfinite(out).all()
+    _check_flash(out, q, k, v, causal)
 
 
 @pytest.mark.parametrize("B,nh,nkv,nblk,bs,hd,dt", [
@@ -100,6 +123,42 @@ def test_paged_kernel_matches_plain(dev, B, nh, nkv, nblk, bs, hd, dt):
         out.float(),
         paged_decode_attention_ref(q, pk, pv, table, length).float(),
         **_tol(dt))
+
+
+@pytest.mark.parametrize("B,nh,nkv,nblk,bs,hd,dt", [
+    (2, 9, 3, 5, 16, 64, BF16),         # 2 splits x 3 x 2 = 12 CTAs < 132
+    (8, 9, 3, 32, 64, 64, BF16),        # 768 CTAs > 132
+    (4, 8, 2, 12, 8, 128, F32),         # 8 blocks per split, ragged split
+    (3, 32, 8, 20, 32, 128, BF16),      # 10 splits x 8 x 3 = 240 CTAs
+])
+def test_paged_kernel_split_boundaries(dev, B, nh, nkv, nblk, bs, hd, dt):
+    """Lengths on, just before and just after a split boundary, and a
+    whole pool; the result is bit-identical on a second launch and after
+    the pools are compacted and the table made the identity."""
+    bps, nsplit, _ = split_plan(B, nh, nkv, nblk, bs, hd)
+    span = bps * bs
+    gen = torch.Generator().manual_seed(nblk * bs + hd + 1)
+    q = _randn(gen, dev, dt, B, nh, hd)
+    pk = _randn(gen, dev, dt, B, nblk, bs, nkv, hd)
+    pv = _randn(gen, dev, dt, B, nblk, bs, nkv, hd)
+    table = _perms(gen, dev, B, nblk)
+    edges = [span, span + 1, span - 1, nblk * bs, 2 * span + 1, 1, 3 * span,
+             nblk * bs - 1]
+    length = torch.tensor([min(edges[i % len(edges)], nblk * bs)
+                           for i in range(B)], dtype=torch.int32,
+                          device=dev)
+    out = paged_decode_attention(q, pk, pv, table, length)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        out.float(),
+        paged_decode_attention_ref(q, pk, pv, table, length).float(),
+        **_tol(dt))
+    assert torch.equal(paged_decode_attention(q, pk, pv, table, length), out)
+    ck, ident = compact_kv_pool(pk.reshape(B, nblk, bs, -1), table)
+    cv, _ = compact_kv_pool(pv.reshape(B, nblk, bs, -1), table)
+    after = paged_decode_attention(q, ck.reshape(pk.shape),
+                                   cv.reshape(pv.shape), ident, length)
+    assert torch.equal(after, out)
 
 
 @pytest.mark.parametrize("shape,dt", [

@@ -18,13 +18,15 @@ from repro.kernels.kv_compaction.ops import compact_kv_pool as jax_compact
 from repro.kernels.paged_attention.ops import \
     paged_decode_attention as jax_paged
 from repro_torch.convert import params_from_numpy
-from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ops import WGMMA_ROW_REL, \
+    flash_attention, row_relative_error
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref, \
+    flash_attention_tiled_ref
 from repro_torch.kernels.kv_compaction.ops import compact_kv_pool
 from repro_torch.kernels.kv_compaction.ref import compact_kv_pool_ref
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.kernels.paged_attention.ref import \
-    paged_decode_attention_ref
+    paged_decode_attention_ref, paged_decode_attention_split_ref
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -90,6 +92,64 @@ def test_flash_plain_non_causal_matches_pallas():
     np.testing.assert_allclose(_np(out), _np(pallas), rtol=2e-5, atol=2e-5)
 
 
+# The card's limit for bf16 flash on the wgmma route against the plain
+# version run in f32, which the kernel misses by rounding P to bf16 before
+# P @ V: each row within WGMMA_ROW_REL of its largest plain value.  The tiled
+# version makes the same rounding on the CPU; held here against the plain
+# version and the Pallas kernel, both on the inputs upcast to f32, it is the
+# ground for that limit in chip_smoke.py and tests/test_torch_cuda.py.
+@pytest.mark.parametrize(
+    "B,nh,nkv,S,hd,dt,bq,bk",
+    [c for c in FLASH_SWEEP if c[5] == jnp.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tiled_bf16_p_stays_within_card_limit(B, nh, nkv, S, hd, dt,
+                                                    bq, bk, causal):
+    rng = np.random.default_rng(S + hd)
+    jq, q = _pair(rng, (B, nh, S, hd), dt)
+    jk, k = _pair(rng, (B, nkv, S, hd), dt)
+    jv, v = _pair(rng, (B, nkv, S, hd), dt)
+    tiled = flash_attention_tiled_ref(q, k, v, causal=causal)
+    assert tiled.dtype == q.dtype and tiled.shape == q.shape
+    f32 = flash_attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    up = [x.astype(jnp.float32) for x in (jq, jk, jv)]
+    pallas = jax_flash_attention(*up, causal=causal,
+                                 backend="pallas_interpret", block_q=bq,
+                                 block_k=bk)
+    for theirs in (f32, torch.from_numpy(_np(pallas))):
+        assert row_relative_error(tiled, theirs) <= WGMMA_ROW_REL
+    # in f32 the tiled version is the plain one, to f32 rounding
+    np.testing.assert_allclose(
+        _np(flash_attention_tiled_ref(q.float(), k.float(), v.float(),
+                                      causal=causal)), _np(f32),
+        rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("fault", ["dropped key tile", "one future key"])
+def test_flash_row_limit_rejects_late_row_faults(fault):
+    """The row limit is tight where outputs are smallest: a fault confined
+    to the last rows of a long causal prefill breaks it, while the tiled
+    version (sound, P in bf16) keeps it."""
+    S, start = 1024, 900
+    rng = np.random.default_rng(3)
+    _, q = _pair(rng, (1, 9, S, 64), jnp.bfloat16)
+    _, k = _pair(rng, (1, 3, S, 64), jnp.bfloat16)
+    _, v = _pair(rng, (1, 3, S, 64), jnp.bfloat16)
+    plain = flash_attention_ref(q.float(), k.float(), v.float())
+    out = flash_attention_tiled_ref(q, k, v)
+    assert row_relative_error(out, plain) <= WGMMA_ROW_REL
+    pos, rows = torch.arange(S), torch.arange(start, S)[:, None]
+    visible = pos <= rows + (fault == "one future key")
+    if fault == "dropped key tile":
+        visible &= (pos < 256) | (pos >= 320)
+    s = torch.einsum("bhqd,bhkd->bhqk", q[:, :, start:].float(),
+                     k.float().repeat_interleave(3, dim=1)) * 64 ** -0.5
+    p = torch.softmax(torch.where(visible, s, -torch.inf), dim=-1)
+    out[:, :, start:] = torch.einsum(
+        "bhqk,bhkd->bhqd", p, v.float().repeat_interleave(3, dim=1)).to(
+            out.dtype)
+    assert row_relative_error(out, plain) > 4 * WGMMA_ROW_REL
+
+
 PAGED_SWEEP = [
     # (B, nh, nkv, nblk, bs, hd, dtype): tests/test_kernels.py's sweep
     (2, 8, 2, 8, 16, 64, jnp.float32),
@@ -116,6 +176,35 @@ def test_paged_plain_matches_pallas_and_ref(B, nh, nkv, nblk, bs, hd, dt):
     ref = jax_paged(*args, backend="reference")
     np.testing.assert_allclose(_np(out), _np(pallas), **tol(dt))
     np.testing.assert_allclose(_np(out), _np(ref), **tol(dt))
+
+
+@pytest.mark.parametrize("B,nh,nkv,nblk,bs,hd,dt", PAGED_SWEEP)
+@pytest.mark.parametrize("blocks_per_split", [1, 2, 3])
+def test_paged_split_plain_matches_plain_and_pallas(B, nh, nkv, nblk, bs, hd,
+                                                    dt, blocks_per_split):
+    """The split kernel's algorithm (per-split partials merged in logical
+    order) at the edge lengths 0, 1, bs, bs + 1, nblk * bs and
+    nblk * bs + 1, one per sequence; three blocks per split never divide
+    the sweep's block counts."""
+    lengths = [0, 1, bs, bs + 1, nblk * bs, nblk * bs + 1]
+    B = len(lengths)
+    rng = np.random.default_rng(nblk * bs + hd + blocks_per_split)
+    jq, q = _pair(rng, (B, nh, hd), dt)
+    jpk, pk = _pair(rng, (B, nblk, bs, nkv, hd), dt)
+    jpv, pv = _pair(rng, (B, nblk, bs, nkv, hd), dt)
+    table = _tables(rng, B, nblk)
+    length = np.array(lengths, np.int32)
+    tt, tl = torch.from_numpy(table), torch.from_numpy(length)
+    split = paged_decode_attention_split_ref(q, pk, pv, tt, tl,
+                                             blocks_per_split)
+    assert split.dtype == q.dtype and split.shape == q.shape
+    assert torch.count_nonzero(split[0]) == 0
+    pallas = jax_paged(jq, jpk, jpv, jnp.asarray(table), jnp.asarray(length),
+                       backend="pallas_interpret")
+    np.testing.assert_allclose(
+        _np(split), _np(paged_decode_attention_ref(q, pk, pv, tt, tl)),
+        **tol(dt))
+    np.testing.assert_allclose(_np(split), _np(pallas), **tol(dt))
 
 
 def test_paged_plain_edge_lengths_match_pallas():
