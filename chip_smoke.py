@@ -19,7 +19,20 @@ Run from the root of a checkout on a machine with one CUDA card.  It drives
    scrambled block tables, compact() after every 8 finished requests, and
    checks that all three kernels ran and that compaction changed no token;
 4. serves the f32 model on the card and on the CPU (plain versions) and
-   requires the same greedy tokens.
+   requires the same greedy tokens (phase 3 ends by turning on
+   deterministic algorithms and serving its requests again, which must
+   give the same token streams: the later phases run in that mode);
+5. trains full-width smollm_135m (bf16 params, f32 moments, remat "full",
+   batch 4 x 2048 from the port's TokenPipeline) through ``TrainRunner``
+   with a 3-controller Raft ``Coordinator`` and a Nezha checkpoint every 4
+   steps: 12 steps uninterrupted, then a run that crashes after step 10, a
+   restore that must start at 8 and a resumed run whose losses equal the
+   uninterrupted run's bit for bit; checks that the training path
+   launched none of the kernels (it reaches none in the JAX package
+   either), and times a train step, a checkpoint save, restore and GC;
+6. takes one f32 train step of smollm_135m at full width and 2 layers on
+   the card and on the CPU from the same state and batch, and holds loss,
+   gradients and updated params to 1e-4.
 
 Any failure raises.  The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Without a card it exits non-zero and
@@ -29,8 +42,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -41,6 +57,11 @@ FLUSH_BYTES = 64 << 20                                      # > 50 MB of L2
 SLEEP_CYCLES = 2_000_000    # ~1 ms of device spin: covers the enqueue
 DEVICE = "cuda"
 SLOTS, MAX_SEQ = 8, 2048    # the serving phase's slots and context
+TRAIN_BATCH, TRAIN_STEPS, CKPT_EVERY, CRASH_AT = 4, 12, 4, 10
+# Phase 6: the most of a leaf whose updated values may have an open sign,
+# twice the largest share read on the card (embed/embedding 0.0099; every
+# other leaf under 0.0009; PERF.md, section 6)
+OPEN_SHARE_MAX = 0.02
 # The previous paged and flash kernels' times (the CUDA-core flash kernel
 # and the unsplit paged kernel) at the same shapes, with the same timer and
 # inputs, on one H100 80GB HBM3 at 700 W: copied from PERF.md
@@ -327,6 +348,7 @@ def serve_full_width(torch, seed, wrappers):
         return eng, dt, launches
 
     eng, dt, launches = run(compact_every=8)
+    compacted = {r.rid: r.out for r in eng.finished}
     if len(eng.finished) != len(prompts) or any(
             len(r.out) != 65 for r in eng.finished):
         raise AssertionError("not every request finished")
@@ -359,38 +381,49 @@ def serve_full_width(torch, seed, wrappers):
         raise AssertionError("compaction changed a token stream")
     print("[serve] tokens equal after compaction and without compaction")
     profile_serving(torch, eng, prompts)
+    # the same run under deterministic algorithms, which the later phases
+    # keep
+    torch.use_deterministic_algorithms(True)
+    det_eng, det_dt, _ = run(compact_every=8)
+    if {r.rid: r.out for r in det_eng.finished} != compacted:
+        raise AssertionError("deterministic algorithms changed a token")
+    print(f"[serve] deterministic algorithms: every op of the serving path "
+          f"ran, same token streams, {det_dt} s (against {dt} s)")
     return launches, (new_tokens + len(prompts)) / dt
 
 
-def profile_serving(torch, eng, prompts):
-    """Where a step's time goes: host clock against the device time the
-    profiler sees, for one admission of 8 prompts (8 prefills + a decode
-    step) and for 8 lockstep decode steps of 8 live slots."""
+def profile_window(torch, label, fn):
+    """Host clock against the device time the profiler sees over ``fn``,
+    and the top device consumers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    def window(label, fn):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA]
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        print(f"[profile] {label}: wall {wall} ms, device busy {busy} ms "
-              f"({100 * busy / wall} %), {sum(e.count for e in kernels)} "
-              f"kernel launches")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"[profile]   {e.self_device_time_total / 1e3} ms "
-                  f"x{e.count} {e.key[:90]}")
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"[profile] {label}: wall {wall} ms, device busy {busy} ms "
+          f"({100 * busy / wall} %), {sum(e.count for e in kernels)} "
+          f"kernel launches")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[profile]   {e.self_device_time_total / 1e3} ms "
+              f"x{e.count} {e.key[:90]}")
 
+
+def profile_serving(torch, eng, prompts):
+    """Where a step's time goes: one admission of 8 prompts (8 prefills + a
+    decode step) and 8 lockstep decode steps of 8 live slots."""
     for p in prompts[:8]:
         eng.submit(p, max_new=64)
-    window("admit 8 + 1 decode step", eng.step)
-    window("8 decode steps", lambda: [eng.step() for _ in range(8)])
+    profile_window(torch, "admit 8 + 1 decode step", eng.step)
+    profile_window(torch, "8 decode steps",
+                   lambda: [eng.step() for _ in range(8)])
     eng.run_until_drained()
 
 
@@ -432,11 +465,266 @@ def card_matches_cpu(torch, seed):
           f"{outs['cpu']}")
 
 
+def train_full_width(torch, seed, wrappers):
+    """Phase 5: the training path at smollm_135m's published width, with
+    the crash -> restore drill, on the card.  Returns the kernels' launch
+    counts over the drill."""
+    from repro_torch.ckpt.nezha_store import NezhaCheckpointStore
+    from repro_torch.configs import ShapeConfig, get
+    from repro_torch.core.metrics import Metrics
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import abstract_state
+    from repro_torch.runtime.coordinator import Coordinator, TrainRunner
+    from repro_torch.utils import tree_bytes, tree_map, tree_paths
+
+    cfg = get("smollm_135m")
+    shape = ShapeConfig("chip_smoke", seq_len=MAX_SEQ,
+                        global_batch=TRAIN_BATCH, kind="train")
+    print(f"[train] smollm_135m full width: {cfg.param_count()} params "
+          f"({cfg.param_dtype}, f32 moments, remat {cfg.remat}), batch "
+          f"{TRAIN_BATCH} x {MAX_SEQ}, {TRAIN_STEPS} steps, checkpoint "
+          f"every {CKPT_EVERY}, crash after {CRASH_AT}")
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    free_before = shutil.disk_usage(root).free
+    coords, runners = [], []
+
+    def runner(name, coord):
+        runners.append(TrainRunner(cfg, shape, f"{root}/{name}", seed=seed,
+                                   ckpt_every=CKPT_EVERY, coordinator=coord,
+                                   device=DEVICE))
+        return runners[-1]
+
+    try:
+        for w in wrappers:
+            w.launches = 0
+        coords.append(Coordinator(f"{root}/ref", n_controllers=3))
+        r1 = runner("ref", coords[0])
+        r1.init_or_restore()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ref = r1.run(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        t_ref = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        ref_metrics = r1.store.metrics
+        print(f"[train] uninterrupted: {TRAIN_STEPS} steps in {t_ref} s "
+              f"(checkpoints included), losses {ref}, peak device memory "
+              f"{peak} bytes; its store wrote {dict(ref_metrics.write_bytes)}"
+              f" bytes")
+        print(f"[train] Raft commits (uninterrupted run): "
+              f"{len(coords[0].committed_steps('step'))} step, "
+              f"{len(coords[0].committed_steps('ckpt'))} ckpt, "
+              f"{len(coords[0].committed_steps('ckpt_manifest'))} manifest")
+        r1.close()
+        coords.pop().destroy()
+        shutil.rmtree(f"{root}/ref")
+
+        # the control plane outlives the crashed host
+        coord = Coordinator(f"{root}/drill", n_controllers=3)
+        coords.append(coord)
+        r2 = runner("drill", coord)
+        r2.init_or_restore()
+        failure = None
+        t0 = time.perf_counter()
+        try:
+            r2.run(TRAIN_STEPS, crash_at=CRASH_AT)
+        except RuntimeError as e:   # the drill's own injected failure only
+            failure = str(e)
+        t_crash = time.perf_counter() - t0
+        if failure != f"injected host failure at {CRASH_AT}":
+            raise AssertionError(f"no injected failure at {CRASH_AT}")
+        r2.close()                  # the crashed host's files are closed
+        r3 = runner("drill", coord)
+        t0 = time.perf_counter()
+        start = r3.init_or_restore()
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        expect = CRASH_AT // CKPT_EVERY * CKPT_EVERY
+        if start != expect:
+            raise AssertionError(f"restored at {start}, expected {expect}")
+        t0 = time.perf_counter()
+        resumed = r3.run(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter() - t0
+        if resumed != ref[start:]:
+            raise AssertionError(f"resumed losses {resumed} differ from "
+                                 f"{ref[start:]}")
+        launches = {w.__name__: w.launches for w in wrappers}
+        if any(launches.values()):
+            raise AssertionError(f"the training path launched {launches}")
+        print(f"[train] drill: {CRASH_AT} steps then the crash in {t_crash} "
+              f"s, restore at {start} in {t_restore} s, "
+              f"{TRAIN_STEPS - start} resumed steps in {t_resume} s "
+              f"(through the Raft cluster: committed ckpts "
+              f"{coord.committed_steps('ckpt')}), resumed losses equal bit "
+              f"for bit: {resumed}; kernel launches {launches}")
+        print(f"[train] Raft commits (drill, both runs): "
+              f"{len(coord.committed_steps('step'))} step, "
+              f"{len(coord.committed_steps('ckpt'))} ckpt, "
+              f"{len(coord.committed_steps('ckpt_manifest'))} manifest")
+
+        # one train step, timed alone
+        pipe = TokenPipeline(cfg, shape, seed=seed, start_step=TRAIN_STEPS)
+        try:
+            batches = [r3._put_batch(pipe.batch_for_step(TRAIN_STEPS + i))
+                       for i in range(3)]
+        finally:
+            pipe.close()
+        # under the deterministic algorithms the drill runs with
+        state, times = r3.state, []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = r3.step_fn(state, batches[i])
+            float(m["loss"])
+            times.append(time.perf_counter() - t0)
+        step_s = min(times)
+        print(f"[train] step: {[t * 1e3 for t in times]} ms, best "
+              f"{step_s * 1e3} ms = {TRAIN_BATCH * MAX_SEQ / step_s} "
+              f"tokens/s")
+        profile_window(torch, "1 train step",
+                       lambda: float(r3.step_fn(state, batches[0])[1]["loss"]))
+
+        # checkpoint save, restore and GC on one store, timed alone
+        metrics = Metrics()
+        store = NezhaCheckpointStore(f"{root}/bench", metrics,
+                                     gc_threshold_bytes=1 << 62)
+        nbytes = tree_bytes(state)
+        t0 = time.perf_counter()
+        store.save(1, tree_map(lambda t: t.detach().cpu(), state))
+        t_save = time.perf_counter() - t0
+        wa = metrics.write_bytes["ckpt_valuelog"] / nbytes
+        if wa != 1.0:
+            raise AssertionError(f"checkpoint write amplification {wa}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host, _ = store.restore(abstract_state(cfg), step=1)
+        back = tree_map(lambda t: t.to(DEVICE), host)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        for (n, a), (_, b) in zip(tree_paths(state), tree_paths(back)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"restored {n} differs")
+        store.save(2, tree_map(lambda t: t.detach().cpu(), state))
+        t0 = time.perf_counter()
+        store.gc()
+        t_gc = time.perf_counter() - t0
+        store.close()
+        print(f"[ckpt] state {nbytes} bytes; save (device -> host + one "
+              f"append) {t_save * 1e3} ms; restore (read + host -> device) "
+              f"{t_load * 1e3} ms; GC of {store.keep} checkpoints "
+              f"{t_gc * 1e3} ms; ckpt_valuelog {wa} x the state; bytes "
+              f"written {dict(metrics.write_bytes)}; read "
+              f"{dict(metrics.read_bytes)}")
+    finally:
+        for r in runners:
+            r.close()
+        for c in coords:
+            c.destroy()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[train] free disk {free_before} bytes before, "
+          f"{shutil.disk_usage(tempfile.gettempdir()).free} after")
+    return launches
+
+
+def train_card_matches_cpu(torch, seed):
+    """Phase 6: one f32 train step of smollm_135m at full width and 2
+    layers, on the card and on the CPU from the same state and batch."""
+    from repro_torch.configs import ShapeConfig, get
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.launch.steps import make_init_fn, make_train_step
+    from repro_torch.models import forward, lm_loss
+    from repro_torch.train.optimizer import OptHyper
+    from repro_torch.utils import tree_leaves, tree_map, tree_paths, \
+        tree_unflatten
+
+    cfg = get("smollm_135m").replace(n_layers=2, param_dtype="float32")
+    shape = ShapeConfig("chip_smoke_f32", seq_len=512, global_batch=2,
+                        kind="train")
+    state = make_init_fn(cfg, "cpu")(seed)
+    pipe = TokenPipeline(cfg, shape, seed=seed)
+    try:
+        batch = {k: torch.from_numpy(v)
+                 for k, v in pipe.batch_for_step(0).items()}
+    finally:
+        pipe.close()
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        st = tree_map(lambda t: t.to(dev), state)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        live = [p.detach().requires_grad_(True)
+                for p in tree_leaves(st["params"])]
+        logits, _ = forward(tree_unflatten(st["params"], live), b["tokens"],
+                            cfg, mode="train")
+        grads = torch.autograd.grad(lm_loss(logits, b["labels"]), live)
+        new, m = make_train_step(cfg, shape, device=dev)(st, b)
+        out[dev] = (float(m["loss"]), [g.cpu() for g in grads],
+                    tree_map(lambda t: t.cpu(), new))
+    names = [n for n, _ in tree_paths(state["params"])]
+    (l_gpu, g_gpu, new_gpu), (l_cpu, g_cpu, new_cpu) = out[DEVICE], out["cpu"]
+    if abs(l_gpu - l_cpu) > 1e-4 * abs(l_cpu):
+        raise AssertionError(f"f32 loss card {l_gpu} CPU {l_cpu}")
+    worst = {}
+    for n, a, b in zip(names, g_gpu, g_cpu):
+        if not bool(torch.isfinite(a).all()) or float(a.abs().max()) == 0:
+            raise AssertionError(f"card gradient of {n} missing or not "
+                                 "finite")
+        worst[n] = float((a - b).abs().max() / b.abs().max())
+        if worst[n] > 1e-4:
+            raise AssertionError(f"f32 gradient {n}: {worst[n]}")
+    # the train step's moments: m holds (1 - b1) * g and v (1 - b2) * g^2,
+    # clip scale included, so they hold the step's own gradients
+    cpu_new, gpu_new = dict(tree_paths(new_cpu)), dict(tree_paths(new_gpu))
+    moment_err = {}
+    for n in names:
+        for k in ("m", "v"):
+            a, b = gpu_new[f"{k}/{n}"], cpu_new[f"{k}/{n}"]
+            moment_err[f"{k}/{n}"] = float((a - b).abs().max()
+                                           / b.abs().max())
+    # params after one AdamW step, relative to each leaf's largest value;
+    # where |m| is within what the card's and the CPU's m differ by, the
+    # step's sign is open and only its size is held there
+    hyper = OptHyper()
+    old = dict(tree_paths(state))
+    param_err, open_share = {}, {}
+    for n in names:
+        a, b, p0 = gpu_new[f"params/{n}"], cpu_new[f"params/{n}"], old[
+            f"params/{n}"]
+        m_cpu = cpu_new[f"m/{n}"]
+        open_sign = m_cpu.abs() <= (gpu_new[f"m/{n}"] - m_cpu).abs().max()
+        open_share[n] = float(open_sign.float().mean())
+        param_err[n] = float((a - b).abs()[~open_sign].max() / b.abs().max())
+        step = (a - p0).abs()[open_sign]
+        if bool((step > 1.01 * hyper.lr * (
+                1 + hyper.weight_decay * p0.abs()[open_sign])).any()):
+            raise AssertionError(f"f32 updated param {n}: step too large")
+    print(f"[f32 train] card vs CPU, 2 layers at full width, batch 2 x 512: "
+          f"loss {l_gpu} vs {l_cpu}; worst gradient error "
+          f"{max(worst.values())} of the leaf's max; every card gradient "
+          f"present and finite")
+    print(f"[f32 train] moments, error of the leaf's max: {moment_err}")
+    print(f"[f32 train] updated params, error of the leaf's max outside the "
+          f"open sign: {param_err}")
+    print(f"[f32 train] share of each leaf with an open sign: {open_share}")
+    for what, errs, limit in (("moment", moment_err, 1e-4),
+                              ("updated param", param_err, 1e-4),
+                              ("open-sign share of", open_share,
+                               OPEN_SHARE_MAX)):
+        for n, e in errs.items():
+            if e > limit:
+                raise AssertionError(f"f32 {what} {n}: {e} > {limit}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    # cuBLAS reads this when its first handle is made: set before any CUDA
+    # work, so that deterministic algorithms (from the end of phase 3 on)
+    # hold for matmuls
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -471,6 +759,8 @@ def main() -> int:
     wrappers = (compact_kv_pool, paged_decode_attention, flash_attention)
     launches, tok_s = serve_full_width(torch, args.seed, wrappers)
     card_matches_cpu(torch, args.seed)
+    train_launches = train_full_width(torch, args.seed, wrappers)
+    train_card_matches_cpu(torch, args.seed)
 
     from repro_torch.kernels.flash_attention.ops import ROUTES
     kernels = []
@@ -487,7 +777,9 @@ def main() -> int:
             "source": "src/repro_torch/csrc/"
                       f"{src or ROUTES[bf['route']][0]}.cu",
             "replaces": replaces,
-            "launches": launches[name], "max_abs_err": bf["max_abs_err"],
+            "launches": launches[name],
+            "train_launches": train_launches[name],
+            "max_abs_err": bf["max_abs_err"],
             "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
             "library_ms": bf["library_ms"], "dtype": "bfloat16",

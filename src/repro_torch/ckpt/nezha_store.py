@@ -1,0 +1,223 @@
+"""KV-separated checkpointing — the paper's technique as training infra.
+
+The JAX package's ``repro.ckpt.nezha_store`` over torch tensor trees, with
+the same files: a checkpoint saved by either package restores in the other,
+and the same tree gives byte-equal ``.vlog`` files and manifests.
+
+Mapping:
+  value  = raw tensor bytes            -> appended ONCE to a host-local
+                                          ValueLog (no staging copy, no WAL)
+  key    = (step, tree path)           -> manifest entry: (gen, offset, len,
+                                          dtype, shape)
+  consensus = the manifest (a few KB)  -> committed through the Raft cluster
+                                          (core.Cluster w/ NezhaEngine); the
+                                          tensor bytes NEVER cross consensus
+  GC     = compaction of superseded checkpoints into a NAME-SORTED file
+           (sequential restore = the paper's sorted-ValueLog scan win), with
+           new saves redirected to a fresh ValueLog meanwhile (three-phase)
+
+A checkpoint is durable when its manifest commits; a crash mid-save leaves a
+dangling (unreferenced) tail in the ValueLog that the next GC collects —
+write amplification for checkpointing is exactly 1.0 + GC.
+
+File format: leaves in JAX's flatten order (sorted dict keys), each as its
+raw little-endian bytes; the manifest records numpy's dtype name
+("bfloat16", "float32", "int32").  torch's bf16 has no numpy view, so every
+leaf's bytes move through a ``uint8`` view of the tensor.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.metrics import Metrics
+from repro_torch.utils import tree_paths, tree_unflatten
+
+PyTree = Any
+
+
+def tensor_bytes(t: torch.Tensor) -> Tuple[bytes, str]:
+    """(raw bytes, numpy dtype name) of a tensor, copied to the host."""
+    t = t.detach().to("cpu").contiguous()
+    data = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+    return data, str(t.dtype).removeprefix("torch.")
+
+
+def tensor_from_bytes(data: bytes, dtype: str, shape) -> torch.Tensor:
+    """A CPU tensor of ``dtype`` (a numpy name) and ``shape`` over a copy of
+    ``data``."""
+    dt = getattr(torch, dtype)
+    if not data:
+        return torch.empty(shape, dtype=dt)
+    return torch.frombuffer(bytearray(data), dtype=dt).reshape(shape)
+
+
+class _Vlog:
+    def __init__(self, path: str, metrics: Metrics, category: str):
+        self.path = path
+        self.metrics = metrics
+        self.category = category
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._f = open(path, "ab")
+        self.size = self._f.tell()
+
+    def append(self, data: bytes) -> int:
+        off = self.size
+        self._f.write(data)
+        self.size += len(data)
+        self.metrics.on_write(self.category, len(data))
+        return off
+
+    def read(self, off: int, length: int) -> bytes:
+        self._f.flush()
+        with open(self.path, "rb") as f:
+            f.seek(off)
+            data = f.read(length)
+        self.metrics.on_read(self.category, length)
+        return data
+
+    def close(self):
+        self._f.close()
+
+    def delete(self):
+        self.close()
+        if os.path.exists(self.path):
+            os.remove(self.path)
+
+
+class NezhaCheckpointStore:
+    def __init__(self, dirpath: str, metrics: Optional[Metrics] = None, *,
+                 cluster=None, keep: int = 2,
+                 gc_threshold_bytes: int = 256 << 20):
+        self.dir = dirpath
+        os.makedirs(dirpath, exist_ok=True)
+        self.metrics = metrics or Metrics()
+        self.cluster = cluster            # optional repro_torch.core Cluster
+        self.keep = keep
+        self.gc_threshold = gc_threshold_bytes
+        self.gen = 0
+        self.vlog = _Vlog(os.path.join(dirpath, f"ckpt_{self.gen:04d}.vlog"),
+                          self.metrics, "ckpt_valuelog")
+        self.manifests: Dict[int, dict] = {}       # step -> manifest
+        self._manifest_dir = os.path.join(dirpath, "manifests")
+        os.makedirs(self._manifest_dir, exist_ok=True)
+        self._load_manifests()
+
+    # -------------------------------------------------------------- save
+    def save(self, step: int, tree: PyTree, host_id: int = 0) -> dict:
+        """Append every tensor leaf of ``tree`` once, then commit its
+        manifest."""
+        entries = {}
+        for name, leaf in tree_paths(tree):
+            data, dtype = tensor_bytes(leaf)
+            off = self.vlog.append(data)            # the ONE tensor write
+            entries[name] = {
+                "gen": self.gen, "offset": off, "length": len(data),
+                "dtype": dtype, "shape": list(leaf.shape),
+                "host": host_id,
+            }
+        manifest = {"step": step, "entries": entries,
+                    "vlog_gen": self.gen}
+        self._commit_manifest(step, manifest)
+        self.manifests[step] = manifest
+        self._maybe_gc()
+        return manifest
+
+    def _commit_manifest(self, step: int, manifest: dict):
+        blob = json.dumps(manifest).encode()
+        if self.cluster is not None:
+            # lightweight metadata through consensus (KVS-Raft style)
+            self.cluster.put(f"ckpt_manifest/{step:012d}".encode(), blob)
+        path = os.path.join(self._manifest_dir, f"{step:012d}.json")
+        tmp = path + ".tmp"
+        with open(tmp, "wb") as f:
+            f.write(blob)
+        os.replace(tmp, path)                       # atomic commit point
+        self.metrics.on_write("ckpt_manifest", len(blob))
+
+    def _load_manifests(self):
+        for fn in sorted(os.listdir(self._manifest_dir)):
+            if fn.endswith(".json"):
+                with open(os.path.join(self._manifest_dir, fn)) as f:
+                    m = json.load(f)
+                self.manifests[m["step"]] = m
+
+    # ------------------------------------------------------------ restore
+    def latest_step(self) -> Optional[int]:
+        if self.cluster is not None:
+            sc = self.cluster.scan(b"ckpt_manifest/", b"ckpt_manifest/~")
+            if sc:
+                return json.loads(sc[-1][1])["step"]
+        return max(self.manifests) if self.manifests else None
+
+    def restore(self, tree_like: PyTree, step: Optional[int] = None) -> \
+            Tuple[PyTree, int]:
+        """Fill ``tree_like``'s structure (meta tensors will do) with CPU
+        tensors of the manifest's dtypes and shapes."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise LookupError("no committed checkpoint")
+        manifest = self.manifests.get(step)
+        if manifest is None and self.cluster is not None:
+            blob = self.cluster.get(f"ckpt_manifest/{step:012d}".encode())
+            manifest = json.loads(blob)
+        leaves = []
+        for name, _ in tree_paths(tree_like):
+            e = manifest["entries"][name]
+            leaves.append(tensor_from_bytes(self._read_entry(e), e["dtype"],
+                                            e["shape"]))
+        return tree_unflatten(tree_like, leaves), step
+
+    def _read_entry(self, e: dict) -> bytes:
+        gen = e["gen"]
+        if gen == self.gen:
+            return self.vlog.read(e["offset"], e["length"])
+        path = os.path.join(self.dir, f"ckpt_{gen:04d}.vlog")
+        with open(path, "rb") as f:
+            f.seek(e["offset"])
+            data = f.read(e["length"])
+        self.metrics.on_read("ckpt_valuelog", e["length"])
+        return data
+
+    # ----------------------------------------------------------------- GC
+    def _maybe_gc(self):
+        if self.vlog.size >= self.gc_threshold:
+            self.gc()
+
+    def gc(self):
+        """Compact live checkpoints into a fresh, NAME-SORTED ValueLog.
+        Sorted layout => restore() reads sequentially (paper's scan win)."""
+        live_steps = sorted(self.manifests)[-self.keep:]
+        old_gens = {self.manifests[s]["vlog_gen"] for s in live_steps} | \
+            {self.gen}
+        self.gen += 1
+        new_vlog = _Vlog(os.path.join(self.dir, f"ckpt_{self.gen:04d}.vlog"),
+                         self.metrics, "ckpt_gc")
+        for s in live_steps:
+            man = self.manifests[s]
+            for name in sorted(man["entries"]):     # key-sorted layout
+                e = man["entries"][name]
+                data = self._read_entry(e)
+                e["offset"] = new_vlog.append(data)
+                e["gen"] = self.gen
+            man["vlog_gen"] = self.gen
+            self._commit_manifest(s, man)
+        # drop superseded manifests + old logs (cleanup phase)
+        for s in list(self.manifests):
+            if s not in live_steps:
+                del self.manifests[s]
+                p = os.path.join(self._manifest_dir, f"{s:012d}.json")
+                if os.path.exists(p):
+                    os.remove(p)
+        self.vlog.close()
+        for g in old_gens:
+            p = os.path.join(self.dir, f"ckpt_{g:04d}.vlog")
+            if os.path.exists(p) and g != self.gen:
+                os.remove(p)
+        self.vlog = new_vlog
+
+    def close(self):
+        self.vlog.close()

@@ -1,1 +1,2 @@
-from repro_torch.configs.base import ARCH_IDS, ModelConfig, get  # noqa: F401
+from repro_torch.configs.base import (ARCH_IDS, SHAPES, ModelConfig,  # noqa: F401
+                                      ShapeConfig, get)

@@ -115,6 +115,57 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    # ---- analytic parameter / FLOP accounting (for roofline MODEL_FLOPS) ----
+    def param_count(self) -> int:
+        d, ff, V = self.d_model, self.d_ff, self.vocab_size
+        hd, nh, nkv = self.hd, self.n_heads, self.n_kv_heads
+        total = V * d  # embed
+        if not self.tie_embeddings:
+            total += V * d
+        attn = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
+        if self.qkv_bias:
+            attn += (nh + 2 * nkv) * hd
+        mlp = (3 if self.mlp_kind == "swiglu" else 2) * d * ff
+        moe = self.n_experts * (3 * d * ff) + d * self.n_experts if self.is_moe else 0
+        di = self.ssm_expand * d
+        nh_ssm = max(di // self.ssm_head_dim, 1)
+        mamba = (d * (2 * di + 2 * self.ssm_state + nh_ssm)  # in_proj(z,x)+B,C+dt
+                 + self.ssm_conv * (di + 2 * self.ssm_state) + di * d + 2 * nh_ssm)
+        for kind in self.pattern_for_layers():
+            total += 2 * d  # norms
+            if kind == ATTN:
+                total += attn + mlp
+            elif kind == ATTN_MOE:
+                total += attn + moe
+            elif kind == MAMBA2:
+                total += mamba
+            elif kind == MLSTM:
+                di_m = 2 * d  # up-projection factor 2
+                # in: d->2*di (x and gate z); qkv: 3 projections di->di; out di->d
+                total += d * 2 * di_m + 3 * di_m * di_m + di_m * d
+            elif kind == SLSTM:
+                # 4 gates d->d recurrent cell + FFN with pf=4/3 (up+down)
+                total += 4 * d * d + 2 * d * int(4 * d / 3)
+        if self.shared_attn_every > 0:
+            total += attn + mlp  # one shared block
+        return int(total)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
 
 # the architectures this port runs (the JAX package's ARCH_IDS has more)
 ARCH_IDS = ["smollm_135m"]

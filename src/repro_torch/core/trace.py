@@ -1,0 +1,567 @@
+"""End-to-end operation tracing over the simulated cluster.
+
+Three pieces, all virtual-time (SimNet ticks), all deterministic:
+
+* **Tracer** — a span tree with cross-node context propagation.  A client
+  op opens a root span; the span id rides on Raft/shipping messages
+  (``AppendEntries``/``Reply``, ``InstallSnapshot``, ``TimeoutNow``, and
+  the sealed-run ``rec`` dict for ``ShipRun``) so follower-side fsyncs,
+  apply work, run adoption and GC steps reconstruct into one cross-node
+  tree.  Every accounted I/O op (``Metrics.on_write/on_read/on_fsync``
+  plus FaultFS rename/dir-fsync) is recorded as a child span carrying its
+  layer tag (raft_log, wal, flush, valuelog, manifest, ship cursor, ...).
+  Timestamps come exclusively from the injected ``clock`` (the cluster
+  wires ``lambda: net.time``), so the serialized tree is a pure function
+  of {seed, schedule}: same inputs => byte-identical ``to_json()``.
+
+* **Causality auditor** — ``audit(tracer.events)`` replays the protocol
+  event stream and reports structural violations: a follower acking an
+  append it never made durable, a leader committing without a quorum of
+  recorded acks, a node applying past its known commit index, a client
+  acked before the leader applied.  Zero violations is a smoke gate.
+
+* **MetricsRegistry** — a labeled counter/gauge/histogram registry with
+  Prometheus-style text exposition and a JSON scrape, the typed surface
+  that ``Metrics.fill_registry`` and ``Cluster.health_report`` publish
+  through instead of ad-hoc dict keys.
+
+The tracer is installed process-globally (same pattern as
+``faultfs.install``): hot paths pay one ``_ACTIVE is None`` check when
+tracing is off, and installing/uninstalling never perturbs the
+simulation (no RNG draws, no virtual-time advances).
+
+Copied from ``src/repro/core/trace.py``; only the import prefix differs.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
+
+# --------------------------------------------------------------- spans
+
+
+class Span:
+    """One node-local unit of work.  ``parent == 0`` means root."""
+
+    __slots__ = ("sid", "parent", "name", "kind", "node", "t0", "t1", "tags")
+
+    def __init__(self, sid: int, parent: int, name: str, kind: str,
+                 node: Optional[int], t0: int,
+                 tags: Optional[Dict[str, Any]] = None):
+        self.sid = sid
+        self.parent = parent
+        self.name = name
+        self.kind = kind
+        self.node = node
+        self.t0 = t0
+        self.t1: Optional[int] = None
+        self.tags: Dict[str, Any] = tags or {}
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {"sid": self.sid, "parent": self.parent, "name": self.name,
+                "kind": self.kind, "node": self.node,
+                "t0": self.t0, "t1": self.t1, "tags": self.tags}
+
+
+class _SpanCtx:
+    __slots__ = ("_t", "_name", "_kw", "_sid")
+
+    def __init__(self, tracer: "Tracer", name: str, kw: Dict[str, Any]):
+        self._t = tracer
+        self._name = name
+        self._kw = kw
+
+    def __enter__(self) -> int:
+        self._sid = self._t.begin(self._name, **self._kw)
+        return self._sid
+
+    def __exit__(self, *exc) -> None:
+        self._t.end(self._sid)
+
+
+class Tracer:
+    """Virtual-time span tracer.
+
+    ``clock`` must be a zero-arg callable returning the current virtual
+    time (the cluster passes ``lambda: net.time``).  The simulation is
+    single-threaded and message handlers run to completion, so one
+    global span stack is sufficient: whatever span is on top when an
+    I/O hook fires is, by construction, the work that caused it.
+    """
+
+    def __init__(self, clock: Optional[Callable[[], int]] = None):
+        self.clock: Callable[[], int] = clock or (lambda: 0)
+        self.spans: List[Span] = []
+        self.events: List[Dict[str, Any]] = []      # causality audit stream
+        self.net_events: List[Tuple] = []           # unified SimNet feed
+        self._by_id: Dict[int, Span] = {}
+        self._stack: List[int] = []
+        self._next = 1
+        # (raft group, raft index) -> span id.  Multi-Raft: the same raft
+        # index exists independently in every shard group, so the context
+        # registry must be keyed by group too (group None = ungrouped).
+        self._index_ctx: Dict[Tuple[Optional[int], int], int] = {}
+
+    # ---------------------------------------------------- span lifecycle
+
+    def begin(self, name: str, *, kind: str = "span",
+              node: Optional[int] = None,
+              parent: Optional[int] = None, **tags: Any) -> int:
+        """Open a span and push it on the stack.  ``parent=None`` nests
+        under the current top of stack; pass an explicit id (e.g. a ctx
+        carried on a message) to graft a remote child."""
+        sid = self._next
+        self._next += 1
+        if parent is None:
+            pid = self._stack[-1] if self._stack else 0
+        else:
+            pid = parent
+        sp = Span(sid, pid, name, kind, node, self.clock(), tags or None)
+        self._by_id[sid] = sp
+        self.spans.append(sp)
+        self._stack.append(sid)
+        return sid
+
+    def end(self, sid: int) -> None:
+        sp = self._by_id.get(sid)
+        if sp is not None and sp.t1 is None:
+            sp.t1 = self.clock()
+        if self._stack and self._stack[-1] == sid:
+            self._stack.pop()
+        elif sid in self._stack:                    # tolerate interleaving
+            self._stack.remove(sid)
+
+    def span(self, name: str, **kw: Any) -> _SpanCtx:
+        return _SpanCtx(self, name, kw)
+
+    def current(self) -> int:
+        """Span id to stamp into an outgoing message (0 = no context)."""
+        return self._stack[-1] if self._stack else 0
+
+    def enter(self, sid: int) -> None:
+        """Re-enter an already-open span: make it the current context
+        (stack top) without opening a new one.  Used by the sharded
+        client to interleave work across per-shard subtrees — submits for
+        shard A nest under A's span even while B's span is also open.
+        Pair with exit(); end() still closes the span exactly once."""
+        self._stack.append(sid)
+
+    def exit(self, sid: int) -> None:
+        """Leave a span re-entered via enter() without closing it."""
+        if self._stack and self._stack[-1] == sid:
+            self._stack.pop()
+        elif sid in self._stack:                    # tolerate interleaving
+            self._stack.remove(sid)
+
+    def tag(self, sid: int, **tags: Any) -> None:
+        sp = self._by_id.get(sid)
+        if sp is not None:
+            sp.tags.update(tags)
+
+    # ------------------------------------------- cross-node propagation
+
+    def register_index(self, index: int, sid: Optional[int] = None,
+                       group: Optional[int] = None) -> None:
+        """Remember which span originated the op at raft ``index`` (in
+        shard ``group``, None = ungrouped) so a later AppendEntries batch
+        can carry that context."""
+        sid = self.current() if sid is None else sid
+        if sid:
+            self._index_ctx[(group, index)] = sid
+
+    def ctx_for_range(self, lo: int, hi: int,
+                      group: Optional[int] = None) -> int:
+        """Newest registered context in [lo, hi] of ``group`` (0 if none
+        — e.g. a no-op barrier or config entry that no client op
+        originated)."""
+        for i in range(hi, lo - 1, -1):
+            sid = self._index_ctx.get((group, i))
+            if sid:
+                return sid
+        return 0
+
+    # ------------------------------------------------------ I/O records
+
+    def io(self, op: str, category: str, nbytes: int,
+           node: Optional[int] = None) -> None:
+        """Record one I/O op as a zero-duration child of the current
+        span (or as a root-level span when no span is active, so traced
+        I/O always reconciles exactly with the ``Metrics`` counters)."""
+        parent = self._stack[-1] if self._stack else 0
+        if node is None and parent:
+            node = self._by_id[parent].node
+        sid = self._next
+        self._next += 1
+        t = self.clock()
+        sp = Span(sid, parent, "io." + op, "io", node, t,
+                  {"category": category, "bytes": nbytes})
+        sp.t1 = t
+        self._by_id[sid] = sp
+        self.spans.append(sp)
+
+    # ------------------------------------------------------ audit stream
+
+    def event(self, kind: str, node: int, index: int, **extra: Any) -> None:
+        ev = {"t": self.clock(), "kind": kind, "node": node, "index": index}
+        if extra:
+            ev.update(extra)
+        self.events.append(ev)
+
+    def net_event(self, kind: str, t: int, src: int, dst: int,
+                  msg_type: str, reason: Optional[str] = None) -> None:
+        self.net_events.append((kind, t, src, dst, msg_type, reason))
+
+    # ----------------------------------------------------------- export
+
+    def export(self) -> Dict[str, Any]:
+        """Serializable dump.  A span whose parent id is unknown (its
+        context crossed a tracer swap, or the originating tracer was
+        uninstalled mid-flight) is flagged ``orphan`` — kept, never
+        silently dropped."""
+        ids = self._by_id
+        spans = []
+        for sp in self.spans:
+            d = sp.to_dict()
+            if sp.parent and sp.parent not in ids:
+                d["orphan"] = True
+            spans.append(d)
+        return {"spans": spans, "events": self.events,
+                "net_events": [list(e) for e in self.net_events]}
+
+    def to_json(self) -> str:
+        return json.dumps(self.export(), sort_keys=True,
+                          separators=(",", ":"))
+
+    # ------------------------------------------------------- convenience
+
+    def children(self, sid: int) -> List[Span]:
+        return [s for s in self.spans if s.parent == sid]
+
+    def roots(self, name: Optional[str] = None) -> List[Span]:
+        return [s for s in self.spans
+                if s.parent == 0 and (name is None or s.name == name)]
+
+    def subtree(self, sid: int) -> List[Span]:
+        """All spans under ``sid`` (excluding it), depth-first."""
+        out: List[Span] = []
+        frontier = [sid]
+        kids: Dict[int, List[Span]] = {}
+        for s in self.spans:
+            kids.setdefault(s.parent, []).append(s)
+        while frontier:
+            nid = frontier.pop()
+            for s in kids.get(nid, ()):
+                out.append(s)
+                frontier.append(s.sid)
+        return out
+
+    def io_sums(self, sid: Optional[int] = None
+                ) -> Dict[Tuple[str, str], int]:
+        """Sum of io-span bytes keyed by (op, category); over the whole
+        trace, or over one span's subtree when ``sid`` is given."""
+        spans = self.subtree(sid) if sid is not None else self.spans
+        out: Dict[Tuple[str, str], int] = {}
+        for s in spans:
+            if s.kind != "io":
+                continue
+            k = (s.name[3:], s.tags.get("category", "?"))
+            out[k] = out.get(k, 0) + int(s.tags.get("bytes", 0))
+        return out
+
+
+# ----------------------------------------------------- global installer
+
+_ACTIVE: Optional[Tracer] = None
+
+
+def install(tracer: Tracer) -> Tracer:
+    global _ACTIVE
+    _ACTIVE = tracer
+    return tracer
+
+
+def uninstall() -> None:
+    global _ACTIVE
+    _ACTIVE = None
+
+
+def active() -> Optional[Tracer]:
+    return _ACTIVE
+
+
+# ------------------------------------------------------ causality audit
+
+
+def audit(events: Iterable[Dict[str, Any]]) -> List[str]:
+    """Replay a tracer's event stream and return structural violations.
+
+    Checks (per node ``n``, raft index ``i``):
+
+    * ``ack_sent``   — n acked an append it has not made durable
+                       (durable-before-ack: ``commit_window`` precedes
+                       every success reply);
+    * ``commit``     — the leader advanced commit_index without a quorum
+                       of recorded acks (its own durability counts);
+    * ``apply``      — n applied past its recorded commit knowledge;
+    * ``client_ack`` — the client was acked before the serving leader
+                       applied the op's index.
+
+    "Durable" here is the protocol point (``commit_window`` was invoked
+    before the ack), which is what the paper's durable-before-ack
+    argument needs; whether the window physically fsynced is the
+    ``sync=`` knob, audited separately by the crash-point sweeps.
+    """
+    violations: List[str] = []
+    durable: Dict[int, int] = {}      # node -> max durable log index
+    committed: Dict[int, int] = {}    # node -> max known commit index
+    applied: Dict[int, int] = {}      # node -> max applied index
+    acked: Dict[int, Dict[int, int]] = {}  # leader -> {peer -> max match}
+    for ev in events:
+        k = ev["kind"]
+        n = ev["node"]
+        i = ev["index"]
+        if k == "durable":
+            durable[n] = max(durable.get(n, 0), i)
+        elif k == "ack_sent":
+            if durable.get(n, 0) < i:
+                violations.append(
+                    "t=%s node %s acked index %s before durable "
+                    "(durable=%s)" % (ev["t"], n, i, durable.get(n, 0)))
+        elif k == "ack_recv":
+            peers = acked.setdefault(n, {})
+            f = ev.get("from", -1)
+            peers[f] = max(peers.get(f, 0), i)
+        elif k == "commit":
+            voters = ev.get("voters", [n])
+            need = len(voters) // 2 + 1
+            have = 0
+            for v in voters:
+                if v == n:
+                    if durable.get(n, 0) >= i:
+                        have += 1
+                elif acked.get(n, {}).get(v, 0) >= i:
+                    have += 1
+            if have < need:
+                violations.append(
+                    "t=%s node %s committed index %s before quorum ack "
+                    "(%d/%d of voters %s)"
+                    % (ev["t"], n, i, have, need, sorted(voters)))
+            committed[n] = max(committed.get(n, 0), i)
+        elif k == "commit_learned":
+            committed[n] = max(committed.get(n, 0), i)
+        elif k == "snapshot_install":
+            # an installed snapshot is durable, committed and applied
+            # state by definition (it was built from applied state on
+            # the leader and persisted before the reply)
+            durable[n] = max(durable.get(n, 0), i)
+            committed[n] = max(committed.get(n, 0), i)
+            applied[n] = max(applied.get(n, 0), i)
+        elif k == "apply":
+            if committed.get(n, 0) < i:
+                violations.append(
+                    "t=%s node %s applied index %s before commit "
+                    "(known commit=%s)" % (ev["t"], n, i,
+                                           committed.get(n, 0)))
+            applied[n] = max(applied.get(n, 0), i)
+        elif k == "client_ack":
+            if applied.get(n, 0) < i:
+                violations.append(
+                    "t=%s client acked index %s on node %s before apply "
+                    "(applied=%s)" % (ev["t"], i, n, applied.get(n, 0)))
+        # unknown kinds (e.g. "fault" markers, "recover") are annotations
+    return violations
+
+
+# ------------------------------------------------------ waterfall render
+
+
+def render_waterfall(tracer: Tracer, sid: int, tick_us: float = 50.0,
+                     ) -> str:
+    """ASCII waterfall of one span subtree, for humans.
+
+    Each line: virtual-time offset, node, span name, duration, and
+    (for io spans) the layer tag + bytes.
+    """
+    root = tracer._by_id.get(sid)
+    if root is None:
+        return "<no such span %d>" % sid
+    kids: Dict[int, List[Span]] = {}
+    for s in tracer.spans:
+        kids.setdefault(s.parent, []).append(s)
+    lines: List[str] = []
+
+    def walk(sp: Span, depth: int) -> None:
+        dt = sp.t0 - root.t0
+        dur = (sp.t1 - sp.t0) if sp.t1 is not None else 0
+        node = "node%s" % sp.node if sp.node is not None else "client"
+        extra = ""
+        if sp.kind == "io":
+            extra = "  [%s %dB]" % (sp.tags.get("category", "?"),
+                                    sp.tags.get("bytes", 0))
+        elif sp.tags:
+            extra = "  " + ";".join("%s=%s" % (k, v)
+                                    for k, v in sorted(sp.tags.items()))
+        lines.append("%+8.1fus  %-7s %s%-24s %6.1fus%s"
+                     % (dt * tick_us, node, "  " * depth, sp.name,
+                        dur * tick_us, extra))
+        for ch in sorted(kids.get(sp.sid, ()), key=lambda s: (s.t0, s.sid)):
+            walk(ch, depth + 1)
+
+    walk(root, 0)
+    return "\n".join(lines)
+
+
+# ------------------------------------------------------ metrics registry
+
+
+class _Child:
+    __slots__ = ("value",)
+
+    def __init__(self) -> None:
+        self.value = 0.0
+
+    def inc(self, n: float = 1) -> None:
+        self.value += n
+
+    def set(self, v: float) -> None:
+        self.value = v
+
+
+class _HistChild:
+    __slots__ = ("hist",)
+
+    def __init__(self) -> None:
+        from repro_torch.core.metrics import LatencyHistogram  # lazy: no cycle
+        self.hist = LatencyHistogram()
+
+    def observe(self, v: float) -> None:
+        self.hist.record(v)
+
+
+class _Family:
+    def __init__(self, kind: str, name: str, help: str,
+                 labelnames: Tuple[str, ...]):
+        self.kind = kind
+        self.name = name
+        self.help = help
+        self.labelnames = tuple(labelnames)
+        self._children: Dict[Tuple[str, ...], Any] = {}
+
+    def labels(self, **kw: Any):
+        if set(kw) != set(self.labelnames):
+            raise ValueError(
+                "metric %s takes labels %r, got %r"
+                % (self.name, self.labelnames, tuple(sorted(kw))))
+        key = tuple(str(kw[k]) for k in self.labelnames)
+        ch = self._children.get(key)
+        if ch is None:
+            ch = _HistChild() if self.kind == "histogram" else _Child()
+            self._children[key] = ch
+        return ch
+
+    # bare-metric convenience: no labels declared
+    def inc(self, n: float = 1) -> None:
+        self.labels().inc(n)
+
+    def set(self, v: float) -> None:
+        self.labels().set(v)
+
+    def observe(self, v: float) -> None:
+        self.labels().observe(v)
+
+
+class MetricsRegistry:
+    """Labeled counter/gauge/histogram families with Prometheus-style
+    text exposition and a JSON scrape.  Deterministic output: families
+    and label sets are emitted sorted."""
+
+    def __init__(self) -> None:
+        self._families: Dict[str, _Family] = {}
+
+    def _family(self, kind: str, name: str, help: str,
+                labelnames: Iterable[str]) -> _Family:
+        fam = self._families.get(name)
+        if fam is None:
+            fam = _Family(kind, name, help, tuple(labelnames))
+            self._families[name] = fam
+        elif fam.kind != kind or fam.labelnames != tuple(labelnames):
+            raise ValueError(
+                "metric %s re-registered as %s%r (was %s%r)"
+                % (name, kind, tuple(labelnames), fam.kind, fam.labelnames))
+        return fam
+
+    def counter(self, name: str, help: str = "",
+                labelnames: Iterable[str] = ()) -> _Family:
+        return self._family("counter", name, help, labelnames)
+
+    def gauge(self, name: str, help: str = "",
+              labelnames: Iterable[str] = ()) -> _Family:
+        return self._family("gauge", name, help, labelnames)
+
+    def histogram(self, name: str, help: str = "",
+                  labelnames: Iterable[str] = ()) -> _Family:
+        return self._family("histogram", name, help, labelnames)
+
+    @staticmethod
+    def _fmt_value(v: float) -> str:
+        if isinstance(v, bool):
+            return "1" if v else "0"
+        if float(v).is_integer():
+            return str(int(v))
+        return repr(float(v))
+
+    def prometheus_text(self) -> str:
+        out: List[str] = []
+        for name in sorted(self._families):
+            fam = self._families[name]
+            if fam.help:
+                out.append("# HELP %s %s" % (name, fam.help))
+            ptype = "summary" if fam.kind == "histogram" else fam.kind
+            out.append("# TYPE %s %s" % (name, ptype))
+            for key in sorted(fam._children):
+                ch = fam._children[key]
+                base = dict(zip(fam.labelnames, key))
+
+                def series(metric: str, labels: Dict[str, str],
+                           value: float) -> str:
+                    if labels:
+                        lbl = "{%s}" % ",".join(
+                            '%s="%s"' % (k, labels[k])
+                            for k in sorted(labels))
+                    else:
+                        lbl = ""
+                    return "%s%s %s" % (metric, lbl, self._fmt_value(value))
+
+                if fam.kind == "histogram":
+                    h = ch.hist
+                    out.append(series(name + "_count", base, h.n))
+                    out.append(series(name + "_sum", base, h.total))
+                    if h.n:
+                        for q in (0.5, 0.99):
+                            out.append(series(
+                                name, dict(base, quantile=str(q)),
+                                h.quantile(q)))
+                else:
+                    out.append(series(name, base, ch.value))
+        return "\n".join(out) + "\n"
+
+    def scrape(self) -> Dict[str, Any]:
+        out: Dict[str, Any] = {}
+        for name in sorted(self._families):
+            fam = self._families[name]
+            samples = []
+            for key in sorted(fam._children):
+                ch = fam._children[key]
+                labels = dict(zip(fam.labelnames, key))
+                if fam.kind == "histogram":
+                    h = ch.hist
+                    samples.append({"labels": labels, "count": h.n,
+                                    "sum": h.total,
+                                    "p50": h.quantile(0.5) if h.n else 0.0,
+                                    "p99": h.quantile(0.99) if h.n else 0.0})
+                else:
+                    samples.append({"labels": labels, "value": ch.value})
+            out[name] = {"type": fam.kind, "help": fam.help,
+                         "samples": samples}
+        return out

@@ -134,7 +134,17 @@ def dtype_code(t) -> int:
 
 def require_cuda(name: str, *tensors) -> None:
     """Check what every CUDA wrapper needs of its tensor arguments: on one
-    CUDA device, contiguous, 16-byte aligned."""
+    CUDA device, contiguous, 16-byte aligned, and not asking for a gradient.
+
+    The kernels are forward only, as the JAX package's are (it has no
+    backward kernel): their outputs have no ``grad_fn``, so a call that
+    would record a graph through them raises instead of dropping the
+    gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, so its output would "
+            "carry no gradient; call it under torch.no_grad() or on detached "
+            "inputs")
     dev = tensors[0].device
     for t in tensors:
         if not t.is_cuda or t.device != dev:

@@ -7,6 +7,10 @@ takes the tensor-core kernel ``csrc/flash_attention_wgmma.cu``; f32, and
 bf16 with hd 16 or 256, take the CUDA-core kernel
 ``csrc/flash_attention.cu`` (f32 stays off the tensor cores, whose TF32
 would not hold the f32 result to 2e-5).
+
+The kernel is forward only: a CUDA call on inputs that require grad
+raises (``_build.require_cuda``) rather than return an output with no
+``grad_fn``.
 """
 from __future__ import annotations
 

@@ -2,6 +2,10 @@
 
 The wrapper runs ``compact_kv_pool_ref`` only when the pool lies on the CPU;
 for a CUDA pool it launches ``csrc/kv_compaction.cu`` or raises.
+
+The kernel is forward only: a CUDA call on inputs that require grad
+raises (``_build.require_cuda``) rather than return an output with no
+``grad_fn``.
 """
 from __future__ import annotations
 

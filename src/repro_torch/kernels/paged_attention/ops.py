@@ -5,6 +5,10 @@ The wrapper runs ``paged_decode_attention_ref`` only when q lies on the
 CPU; for CUDA tensors it launches ``csrc/paged_attention.cu`` (a split pass
 over the sequence axis and a merge pass, into a workspace the wrapper
 allocates) or raises.
+
+The kernel is forward only: a CUDA call on inputs that require grad
+raises (``_build.require_cuda``) rather than return an output with no
+``grad_fn``.
 """
 from __future__ import annotations
 

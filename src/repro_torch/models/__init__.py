@@ -1,2 +1,2 @@
 from repro_torch.models.transformer import (forward, init_cache,  # noqa: F401
-                                            init_params)
+                                            init_params, lm_loss)

@@ -1,15 +1,16 @@
-"""GQA attention: causal prefill/train attention + paged-cache decode.
+"""GQA attention: causal train/prefill attention + paged-cache decode.
 
 The paged cache mirrors the paper's storage states: a block pool
 (B, n_blocks, block, n_kv, hd) is the scattered ValueLog and the per-sequence
 int32 block table (logical -> physical) is the key->offset index.
 
-Both attention calls go through kernel wrappers that route by the tensors'
-device: prefill/train attention through ``flash_attention`` and decode
-through ``paged_decode_attention``, which read the block table themselves.
-For CUDA tensors they launch the hand-written kernels; for CPU tensors they
-run the plain versions, which compute what the JAX package's
-``chunked_causal_attention`` and gather-then-attend decode compute.
+Train mode runs ``chunked_causal_attention``, the JAX package's query-chunked
+f32 attention written in PyTorch, on every device: it is differentiable, and
+the JAX package reaches no kernel in train mode either.  Prefill goes
+through the ``flash_attention`` wrapper and decode through
+``paged_decode_attention``, which reads the block table itself: for CUDA
+tensors they launch the hand-written kernels (forward only: they raise on
+inputs that require grad); for CPU tensors they run the plain versions.
 
 Unlike the functional JAX package, cache writes happen in place: the
 pool tensors passed in are updated and returned.
@@ -17,11 +18,14 @@ pool tensors passed in are updated and returned.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.models.layers import apply_rope, dense_init, param_dtype, \
     rmsnorm
+
+NEG_INF = -1e30
 
 
 def attn_init(gen, cfg):
@@ -64,12 +68,60 @@ def _project_qkv(params, x, cfg, positions):
     return q, k, v
 
 
-def chunked_causal_attention(q, k, v):
+def _repeat_kv(k, rep):
+    """(B,S,nkv,hd) -> (B,S,nkv*rep,hd): each KV head ``rep`` times in a
+    row, as ``jnp.repeat`` on the head axis."""
+    if rep == 1:
+        return k
+    return torch.repeat_interleave(k, rep, dim=2)
+
+
+def _sdpa_chunk(qc, k, v, q_pos, kv_pos, scale):
+    """One query chunk against full K/V. qc:(B,C,nh,hd) k/v:(B,S,nh,hd)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", qc.float(), k.float()) * scale
+    mask = kv_pos[None, :] <= q_pos[:, None]            # (C, S) causal
+    s = torch.where(mask[None, None], s, NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - torch.clamp(m, min=NEG_INF).detach())
+    denom = torch.sum(p, dim=-1, keepdim=True)
+    p = p / torch.clamp(denom, min=1e-30)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v.float())
+
+
+def chunked_causal_attention(q, k, v, *, q_offset=0, chunk=512):
+    """q: (B,Sq,nh,hd); k,v: (B,Skv,nkv,hd). Returns (B,Sq,nh,hd) in q's
+    dtype.
+
+    The JAX package's function: f32 softmax with the row max held constant
+    for the gradient, query chunks of ``min(chunk, Sq)``, each recomputed in
+    the backward pass (``checkpoint`` for its ``jax.checkpoint``)."""
+    B, Sq, nh, hd = q.shape
+    Skv, nkv = k.shape[1], k.shape[2]
+    rep = nh // nkv
+    scale = hd ** -0.5
+    k = _repeat_kv(k, rep)
+    v = _repeat_kv(v, rep)
+    kv_pos = torch.arange(Skv, device=q.device)
+    chunk = min(chunk, Sq)
+    n_chunks = Sq // chunk
+    if n_chunks <= 1:
+        o = _sdpa_chunk(q, k, v, torch.arange(Sq, device=q.device) + q_offset,
+                        kv_pos, scale)
+        return o.to(q.dtype)
+    qg = q.reshape(B, n_chunks, chunk, nh, hd)
+    outs = []
+    for i in range(n_chunks):
+        q_pos = i * chunk + torch.arange(chunk, device=q.device) + q_offset
+        outs.append(checkpoint(_sdpa_chunk, qg[:, i], k, v, q_pos, kv_pos,
+                               scale, use_reentrant=False))
+    return torch.stack(outs, dim=1).reshape(B, Sq, nh, hd).to(q.dtype)
+
+
+def flash_prefill_attention(q, k, v):
     """q: (B, S, nh, hd); k, v: (B, S, nkv, hd).  Returns (B, S, nh, hd).
 
-    Causal GQA attention with f32 softmax from position 0 (the JAX
-    function's ``q_offset=0``): the flash kernel on CUDA, its plain
-    (query-chunked) version on the CPU."""
+    Causal attention from position 0 for prefill, through the flash
+    wrapper: the kernel on CUDA, its plain version on the CPU."""
     o = flash_attention(q.transpose(1, 2).contiguous(),
                         k.transpose(1, 2).contiguous(),
                         v.transpose(1, 2).contiguous(), causal=True)
@@ -132,7 +184,10 @@ def attn_apply(params, x, cfg, *, mode="train", cache=None, pos=None):
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None]
     q, k, v = _project_qkv(params, x, cfg, positions)
-    o = chunked_causal_attention(q, k, v)
+    if mode == "train":
+        o = chunked_causal_attention(q, k, v)
+    else:
+        o = flash_prefill_attention(q, k, v)
     out = o.reshape(B, S, -1) @ params["wo_attn"]
     if mode == "prefill" and cache is not None:
         bs = cfg.kv_block_size

@@ -1,0 +1,151 @@
+"""Fault-tolerant training runtime on the Nezha control plane.
+
+The JAX package's ``repro.runtime.coordinator`` over the port's copy of the
+store (``repro_torch.core``) and its single-device train step.  The Raft
+cluster (KVS-Raft engines) is the control plane: step commits, checkpoint
+commits, heartbeats, and membership changes are LIGHTWEIGHT log entries
+(the paper's key insight applied to training: bulky state — tensors —
+never crosses consensus; it is appended once to host-local ValueLogs and
+only the manifest is replicated).
+
+The cluster is in-process (deterministic), which is what the crash drill
+needs: crash at step k -> restore from the last committed checkpoint -> the
+loss curve is bit-identical to the uninterrupted run (restart-safe data
+pipeline).  On CUDA that needs deterministic algorithms
+(``torch.use_deterministic_algorithms(True)``, with
+``CUBLAS_WORKSPACE_CONFIG=:4096:8`` set before the first cuBLAS call); the
+runner leaves that process-wide setting to its caller.
+"""
+from __future__ import annotations
+
+import json
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.ckpt.nezha_store import NezhaCheckpointStore
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.core.cluster import Cluster
+from repro_torch.data.pipeline import TokenPipeline
+from repro_torch.launch import steps as steps_lib
+from repro_torch.utils import tree_map
+
+
+class Coordinator:
+    """Thin client over the Raft control plane."""
+
+    def __init__(self, workdir: str, n_controllers: int = 3, seed: int = 0,
+                 straggler_factor: float = 3.0):
+        self.cluster = Cluster(n=n_controllers, engine="nezha",
+                               workdir=f"{workdir}/control", seed=seed,
+                               engine_kwargs={"gc_threshold": 8 << 20})
+        self.cluster.elect()
+        self.straggler_factor = straggler_factor
+        self._hb: Dict[int, float] = {}
+        self._step_times: List[float] = []
+
+    def commit(self, kind: str, payload: dict):
+        key = f"{kind}/{payload.get('step', 0):012d}".encode()
+        self.cluster.put(key, json.dumps(payload).encode())
+
+    def committed_steps(self, kind: str = "step") -> List[int]:
+        rows = self.cluster.scan(f"{kind}/".encode(), f"{kind}/~".encode())
+        return [json.loads(v)["step"] for _, v in rows]
+
+    def heartbeat(self, host_id: int, step: int, wall: float):
+        self._hb[host_id] = wall
+        self._step_times.append(wall)
+
+    def stragglers(self, now: float, hosts: List[int]) -> List[int]:
+        """Hosts whose last heartbeat lags median step time by `factor`x."""
+        if len(self._step_times) < 4:
+            return []
+        recent = self._step_times[-16:]
+        typical = float(np.median(np.diff(recent))) if len(recent) > 1 else 0
+        if typical <= 0:
+            return []
+        return [h for h in hosts
+                if now - self._hb.get(h, now) > self.straggler_factor *
+                typical]
+
+    def membership_change(self, payload: dict):
+        self.commit("member", payload)
+
+    def destroy(self):
+        self.cluster.destroy()
+
+
+class TrainRunner:
+    """End-to-end driver: data -> train_step -> Nezha ckpt -> raft commits."""
+
+    def __init__(self, cfg: ModelConfig, shape: ShapeConfig, workdir: str,
+                 seed: int = 0, ckpt_every: int = 10,
+                 coordinator: Optional[Coordinator] = None, keep: int = 2,
+                 device="cuda"):
+        self.cfg, self.shape = cfg, shape
+        self.device = resolve_device(device)
+        self.workdir = workdir
+        self.seed = seed
+        self.ckpt_every = ckpt_every
+        self.coord = coordinator
+        self.step_fn = steps_lib.make_train_step(cfg, shape,
+                                                 device=self.device)
+        self.init_fn = steps_lib.make_init_fn(cfg, self.device)
+        self.store = NezhaCheckpointStore(
+            f"{workdir}/ckpt", keep=keep,
+            cluster=coordinator.cluster if coordinator else None)
+        self.state = None
+        self.start_step = 0
+
+    def init_or_restore(self):
+        latest = self.store.latest_step()
+        if latest is None:
+            self.state = self.init_fn(self.seed)
+            self.start_step = 0
+        else:
+            host_tree, step = self.store.restore(
+                steps_lib.abstract_state(self.cfg))
+            self.state = tree_map(lambda t: t.to(self.device), host_tree)
+            self.start_step = step
+        return self.start_step
+
+    def close(self):
+        """Close the checkpoint store's open value log (a deleted workdir
+        keeps its disk space while the log is open)."""
+        self.store.close()
+
+    def _put_batch(self, batch):
+        return {k: torch.from_numpy(v).to(self.device)
+                for k, v in batch.items()}
+
+    def run(self, n_steps: int, crash_at: Optional[int] = None) -> List[float]:
+        """Returns per-step losses. crash_at simulates a host failure by
+        raising after that step commits (state is NOT checkpointed then
+        unless on the ckpt_every boundary — restart resumes from the last
+        committed manifest)."""
+        pipe = TokenPipeline(self.cfg, self.shape, seed=self.seed,
+                             start_step=self.start_step)
+        losses = []
+        try:
+            for step in range(self.start_step, n_steps):
+                batch = self._put_batch(pipe.batch_for_step(step))
+                self.state, metrics = self.step_fn(self.state, batch)
+                loss = float(metrics["loss"])
+                losses.append(loss)
+                if self.coord is not None:
+                    self.coord.commit("step", {"step": step, "loss": loss})
+                    self.coord.heartbeat(0, step, time.time())
+                if (step + 1) % self.ckpt_every == 0:
+                    host_state = tree_map(lambda t: t.detach().cpu(),
+                                          self.state)
+                    self.store.save(step + 1, host_state)
+                    if self.coord is not None:
+                        self.coord.commit("ckpt", {"step": step + 1})
+                if crash_at is not None and step + 1 == crash_at:
+                    raise RuntimeError(f"injected host failure at {crash_at}")
+        finally:
+            pipe.close()
+        return losses

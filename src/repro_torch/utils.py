@@ -31,6 +31,28 @@ def tree_paths(tree) -> list:
     return [(path_str(p), leaf) for p, leaf in _walk(tree, ())]
 
 
+def tree_leaves(tree) -> list:
+    """The leaves in JAX's flatten order."""
+    return [leaf for _, leaf in _walk(tree, ())]
+
+
+def tree_unflatten(like, leaves):
+    """A tree of ``like``'s structure holding ``leaves`` (in flatten order)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
+
+
 def tree_map(fn: Callable, tree):
     """Apply ``fn`` to every leaf, keeping the structure."""
     if isinstance(tree, dict):

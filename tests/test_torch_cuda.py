@@ -12,7 +12,16 @@ bit-exact; greedy tokens identical.  bf16 flash on the wgmma route rounds P
 to bf16 before P @ V, which flash_attention_ref does not: each output row is
 held to WGMMA_ROW_REL of its largest value in the plain version run in f32
 (see kernels/flash_attention/ops.py).
+
+The training path on the card: a full-width step where every parameter
+gets a finite gradient, the wrappers refusing inputs that require grad
+(their kernels have no backward), and the crash -> restore drill with
+bit-identical losses under deterministic algorithms.
 """
+import os
+import shutil
+import tempfile
+
 import pytest
 import torch
 
@@ -29,6 +38,9 @@ from repro_torch.kernels.paged_attention.ref import \
 
 pytestmark = pytest.mark.cuda
 F32, BF16 = torch.float32, torch.bfloat16
+# cuBLAS reads this when its first handle is made, before any test runs:
+# the checkpoint drill needs deterministic matmuls
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 @pytest.fixture
@@ -197,3 +209,105 @@ def test_card_engine_matches_cpu_engine(dev):
         eng.run_until_drained()
         runs.append(([r.out for r in reqs], frag, again.out))
     assert runs[0] == runs[1]
+
+
+def test_wrappers_refuse_inputs_that_require_grad(dev):
+    """The kernels have no backward: a call that would record a graph
+    through them raises instead of dropping the gradient, and the same call
+    under no_grad (as serving makes it) runs."""
+    gen = torch.Generator().manual_seed(9)
+    q = _randn(gen, dev, BF16, 1, 9, 128, 64)
+    k, v = _randn(gen, dev, BF16, 1, 3, 128, 64), _randn(gen, dev, BF16, 1,
+                                                        3, 128, 64)
+    pk, pv = (_randn(gen, dev, F32, 2, 4, 16, 3, 64) for _ in range(2))
+    qd = _randn(gen, dev, F32, 2, 9, 64)
+    table = _perms(gen, dev, 2, 4)
+    length = torch.tensor([20, 64], dtype=torch.int32, device=dev)
+    pool = _randn(gen, dev, F32, 2, 4, 16, 192)
+    calls = {
+        "flash_attention": (lambda a: flash_attention(a[0], a[1], a[2]),
+                            [q, k, v]),
+        "paged_decode_attention": (lambda a: paged_decode_attention(
+            a[0], a[1], a[2], table, length), [qd, pk, pv]),
+        "compact_kv_pool": (lambda a: compact_kv_pool(a[0], table), [pool]),
+    }
+    for name, (call, args) in calls.items():
+        for i in range(len(args)):
+            live = [a.detach().requires_grad_(j == i)
+                    for j, a in enumerate(args)]
+            with pytest.raises(RuntimeError, match="no backward"):
+                call(live)
+            with torch.no_grad():
+                call(live)
+        call(args)
+
+
+def test_full_width_train_step_gives_every_parameter_a_gradient(dev):
+    """smollm_135m as published (bf16, remat "full") at batch 2 x 512: one
+    backward pass reaches every parameter, the attention projections
+    included, with finite values, and the train step runs."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.steps import make_init_fn, make_train_step
+    from repro_torch.models import forward, lm_loss
+    from repro_torch.utils import tree_leaves, tree_paths, tree_unflatten
+    cfg = get("smollm_135m")
+    state = make_init_fn(cfg, dev)(0)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen).to(dev)
+    labels = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen).to(dev)
+    live = [p.detach().requires_grad_(True)
+            for p in tree_leaves(state["params"])]
+    logits, _ = forward(tree_unflatten(state["params"], live), tokens, cfg,
+                        mode="train")
+    grads = torch.autograd.grad(lm_loss(logits, labels), live)
+    names = [n for n, _ in tree_paths(state["params"])]
+    assert {"layers/0/attn/wq", "layers/0/attn/wk", "layers/0/attn/wv"} <= \
+        set(names)
+    for n, g in zip(names, grads):
+        assert g is not None and g.dtype == BF16, n
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0, n
+    step = make_train_step(cfg, ShapeConfig("t", 512, 2, "train"), device=dev)
+    new, m = step(state, {"tokens": tokens, "labels": labels})
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert int(new["step"]) == 1
+
+
+def test_crash_restore_drill_on_the_card(dev):
+    """The drill of tests/test_torch_ckpt.py on the card: crash after step
+    10, restore at 8 through the coordinator, bit-identical losses."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.runtime.coordinator import Coordinator, TrainRunner
+    cfg = get("smollm_135m", smoke=True)
+    shape = ShapeConfig("t", seq_len=64, global_batch=4, kind="train")
+    wd = tempfile.mkdtemp()
+    torch.use_deterministic_algorithms(True)
+    coords = [Coordinator(f"{wd}/ref"), Coordinator(f"{wd}/drill")]
+    runners = []
+
+    def runner(name, coord):
+        runners.append(TrainRunner(cfg, shape, f"{wd}/{name}", seed=7,
+                                   ckpt_every=4, coordinator=coord,
+                                   device=dev))
+        return runners[-1]
+
+    try:
+        r = runner("ref", coords[0])
+        r.init_or_restore()
+        ref = r.run(12)
+        r2 = runner("drill", coords[1])
+        r2.init_or_restore()
+        with pytest.raises(RuntimeError, match="injected host failure"):
+            r2.run(12, crash_at=10)
+        r2.close()
+        r3 = runner("drill", coords[1])
+        assert r3.init_or_restore() == 8
+        assert r3.state["params"]["embed"]["embedding"].device.type == \
+            dev.type
+        assert r3.run(12) == ref[8:]
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for x in runners:
+            x.close()
+        for c in coords:
+            c.destroy()
+        shutil.rmtree(wd, ignore_errors=True)

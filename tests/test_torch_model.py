@@ -25,7 +25,7 @@ from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.models import forward, init_cache, init_params
 from repro_torch.models import layers
 from repro_torch.models.attention import attn_decode, \
-    chunked_causal_attention, init_attn_cache
+    flash_prefill_attention, init_attn_cache
 from repro_torch.utils import tree_paths
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -90,7 +90,7 @@ def test_chunked_causal_attention_matches_jax():
     q = rng.standard_normal((2, 256, 9, 16)).astype(np.float32)
     k = rng.standard_normal((2, 256, 3, 16)).astype(np.float32)
     v = rng.standard_normal((2, 256, 3, 16)).astype(np.float32)
-    out = chunked_causal_attention(*map(torch.from_numpy, (q, k, v)))
+    out = flash_prefill_attention(*map(torch.from_numpy, (q, k, v)))
     ref = jax_chunked_causal_attention(*map(jnp.asarray, (q, k, v)),
                                        chunk=64)
     np.testing.assert_allclose(out.numpy(), _np(ref), **F32_TOL)
