@@ -32,7 +32,29 @@ Run from the root of a checkout on a machine with one CUDA card.  It drives
    either), and times a train step, a checkpoint save, restore and GC;
 6. takes one f32 train step of smollm_135m at full width and 2 layers on
    the card and on the CPU from the same state and batch, and holds loss,
-   gradients and updated params to 1e-4.
+   gradients and updated params to 1e-4;
+7. serves qwen3_8b and olmoe_1b_7b at their published widths and depths
+   (bf16, random weights from the seed; 8.2 and 6.9 billion params) from
+   the paged KV pool: 16 requests of 16-512 prompt tokens and 32 new
+   tokens, one arriving every 4 steps, 8 slots, max_seq 4096, scrambled
+   tables, compact() after every 8 finished (with live sequences);
+   requires every request to finish, each kernel's launch count to be the
+   path's own (layers x admissions for flash, layers x decode steps for
+   paged decode, 2 per compact()), prefill on the wgmma route,
+   fragmentation 0 after each compact() and the token streams of the same
+   run without compaction; times init_params and profiles 4 decode steps;
+8. the same, with 8 requests of 16 new tokens, one arriving every 2
+   steps, and compact() after every 3 finished (both with live
+   sequences), for deepseek_7b, chameleon_34b, qwen2_72b and dbrx_132b
+   at their published widths cut to 2 layers (the last two do not fit
+   one card at full depth);
+9. phase 4 again for every new token config at its SMOKE width.
+
+Phase 2 also holds and times each kernel in bf16 at hd 128 and 4096 tokens
+for every head layout that phases 7 and 8 serve (qwen3_8b 32/8, olmoe_1b_7b
+16/16, deepseek_7b 32/32, dbrx_132b 48/8, qwen2_72b and chameleon_34b 64/8
+heads), compaction over the layers each serving phase runs.  Phases 4 to 9
+run under deterministic algorithms.
 
 Any failure raises.  The last two lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Without a card it exits non-zero and
@@ -41,6 +63,7 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import shutil
@@ -57,6 +80,20 @@ FLUSH_BYTES = 64 << 20                                      # > 50 MB of L2
 SLEEP_CYCLES = 2_000_000    # ~1 ms of device spin: covers the enqueue
 DEVICE = "cuda"
 SLOTS, MAX_SEQ = 8, 2048    # the serving phase's slots and context
+WIDE_SEQ = 4096             # phases 7-8: olmoe_1b_7b's and deepseek_7b's
+# Phase 7, published widths and depths: (arch, requests, new tokens each,
+# compact() after every N finished)
+FULL_WIDTH = (("qwen3_8b", 16, 32, 8), ("olmoe_1b_7b", 16, 32, 8))
+# Phase 8, published widths at 2 layers: qwen2_72b (135.4 GiB of bf16
+# weights) and dbrx_132b (245.1 GiB) do not fit one card at full depth
+TWO_LAYER = ("deepseek_7b", "chameleon_34b", "qwen2_72b", "dbrx_132b")
+# Phase 2: (arch, tokens) of every head layout the serving phases run.
+# smollm_135m in bf16 and f32 (and its bf16 flash also at 32/8 heads, hd
+# 128); the others in bf16 at hd 128: 32/8, 16/16, 32/32, 48/8 and 64/8
+# heads (chameleon_34b has qwen2_72b's)
+KERNEL_SHAPES = (("smollm_135m", MAX_SEQ), ("qwen3_8b", WIDE_SEQ),
+                 ("olmoe_1b_7b", WIDE_SEQ), ("deepseek_7b", WIDE_SEQ),
+                 ("dbrx_132b", WIDE_SEQ), ("qwen2_72b", WIDE_SEQ))
 TRAIN_BATCH, TRAIN_STEPS, CKPT_EVERY, CRASH_AT = 4, 12, 4, 10
 # Phase 6: the most of a leaf whose updated values may have an open sign,
 # twice the largest share read on the card (embed/embedding 0.0099; every
@@ -117,49 +154,44 @@ def _perms(torch, gen, dev, rows, nblk):
                         for _ in range(rows)]).to(dev, torch.int32)
 
 
-def compaction_inputs(torch, cfg, seed, dt, dev):
+def compaction_inputs(torch, cfg, seed, dt, dev, max_seq, layers):
     """One compact() call's K pool (layers * slots flattened) and tables."""
     gen = torch.Generator().manual_seed(seed)
-    nblk = MAX_SEQ // cfg.kv_block_size
-    pool = _randn(torch, gen, dt, dev, cfg.n_layers * SLOTS, nblk,
+    nblk = max_seq // cfg.kv_block_size
+    pool = _randn(torch, gen, dt, dev, layers * SLOTS, nblk,
                   cfg.kv_block_size, cfg.n_kv_heads * cfg.hd)
     return pool, _perms(torch, gen, dev, pool.shape[0], nblk)
 
 
-def paged_inputs(torch, cfg, seed, dt, dev):
+def paged_inputs(torch, cfg, seed, dt, dev, max_seq):
     """One layer of one lockstep decode step: ragged lengths, with an empty
     slot and a freed slot one past the pool.  (q, pool_k, pool_v, table,
     length)"""
     gen = torch.Generator().manual_seed(seed + 1)
-    nblk = MAX_SEQ // cfg.kv_block_size
+    nblk = max_seq // cfg.kv_block_size
     pool = (SLOTS, nblk, cfg.kv_block_size, cfg.n_kv_heads, cfg.hd)
     q = _randn(torch, gen, dt, dev, SLOTS, cfg.n_heads, cfg.hd)
     pk, pv = _randn(torch, gen, dt, dev, *pool), _randn(torch, gen, dt, dev,
                                                         *pool)
     table = _perms(torch, gen, dev, SLOTS, nblk)
-    length = torch.randint(1, MAX_SEQ, (SLOTS,), generator=gen)
-    length[0], length[1] = 0, MAX_SEQ + 1
+    length = torch.randint(1, max_seq, (SLOTS,), generator=gen)
+    length[0], length[1] = 0, max_seq + 1
     return q, pk, pv, table, length.to(dev, torch.int32)
 
 
-def flash_inputs(torch, seed, dt, dev, nh, nkv, hd):
-    """One layer of one admission padded to MAX_SEQ: (q, k, v)."""
+def flash_inputs(torch, seed, dt, dev, nh, nkv, hd, max_seq):
+    """One layer of one admission padded to max_seq: (q, k, v)."""
     gen = torch.Generator().manual_seed(seed + 2)
-    return (_randn(torch, gen, dt, dev, 1, nh, MAX_SEQ, hd),
-            _randn(torch, gen, dt, dev, 1, nkv, MAX_SEQ, hd),
-            _randn(torch, gen, dt, dev, 1, nkv, MAX_SEQ, hd))
+    return (_randn(torch, gen, dt, dev, 1, nh, max_seq, hd),
+            _randn(torch, gen, dt, dev, 1, nkv, max_seq, hd),
+            _randn(torch, gen, dt, dev, 1, nkv, max_seq, hd))
 
 
-def flash_shapes(cfg, dt_name):
-    """(nh, nkv, hd) timed: smollm_135m's heads, and in bf16 also 32/8 heads
-    at hd 128 (the next dense configs' heads) on the same route."""
-    return [(cfg.n_heads, cfg.n_kv_heads, cfg.hd)] + (
-        [(32, 8, 128)] if dt_name == "bfloat16" else [])
-
-
-def check_kernels(torch, seed):
+def check_kernels(torch, seed, arch, max_seq):
     """Phase 2: every kernel against its plain version at the serving
-    path's shapes.  Returns {kernel: {dtype: numbers}}."""
+    path's shapes of ``arch`` (8 slots, ``max_seq`` tokens; compaction over
+    the layers its serving phase runs).  Returns {kernel: {dtype:
+    numbers}}."""
     import torch.nn.functional as F
 
     from repro_torch.configs import get
@@ -174,15 +206,17 @@ def check_kernels(torch, seed):
     from repro_torch.kernels.paged_attention.ref import \
         paged_decode_attention_ref
 
-    cfg = get("smollm_135m")
+    cfg = get(arch)
     nh, nkv, hd, bs = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.kv_block_size
-    nblk = MAX_SEQ // bs
+    nblk = max_seq // bs
+    smollm = arch == "smollm_135m"
+    layers = 2 if arch in TWO_LAYER else cfg.n_layers
     dev = torch.device(DEVICE)
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
     res = {"compact_kv_pool": {}, "paged_decode_attention": {},
            "flash_attention": {}}
 
-    for dt_name in ("bfloat16", "float32"):
+    for dt_name in ("bfloat16", "float32") if smollm else ("bfloat16",):
         dt = getattr(torch, dt_name)
         # kernel and plain version both compute in f32 and round once, so
         # in bf16 they may differ by one rounding: within two bf16 ulps
@@ -190,7 +224,8 @@ def check_kernels(torch, seed):
             dict(rtol=2e-5, atol=2e-5)
         item = torch.tensor([], dtype=dt).element_size()
 
-        pool, table = compaction_inputs(torch, cfg, seed, dt, dev)
+        pool, table = compaction_inputs(torch, cfg, seed, dt, dev, max_seq,
+                                        layers)
         out, _ = compact_kv_pool(pool, table)
         plain = compact_kv_pool_ref(pool, table)
         torch.cuda.synchronize()
@@ -210,7 +245,8 @@ def check_kernels(torch, seed):
             bound_ms=b_ms, bound_by=b_by)
         del pool, plain, out, idx
 
-        q, pk, pv, table, length = paged_inputs(torch, cfg, seed, dt, dev)
+        q, pk, pv, table, length = paged_inputs(torch, cfg, seed, dt, dev,
+                                                max_seq)
         out = paged_decode_attention(q, pk, pv, table, length)
         plain = paged_decode_attention_ref(q, pk, pv, table, length)
         torch.cuda.synchronize()
@@ -221,8 +257,9 @@ def check_kernels(torch, seed):
         if not torch.equal(again, out):
             raise AssertionError("paged decode: two launches differ")
         bps, nsplit, n_ws = split_plan(SLOTS, nh, nkv, nblk, bs, hd)
-        print(f"[kernel] paged_decode_attention {dt_name}: {bps} block(s) "
-              f"per split, {nsplit} splits, grid {nsplit * nkv * SLOTS} "
+        print(f"[kernel] {arch} paged_decode_attention {dt_name}: {bps} "
+              f"block(s) per split, {nsplit} splits, grid "
+              f"{nsplit * nkv * SLOTS} "
               f"CTAs + merge {nkv * SLOTS} CTAs, workspace {4 * n_ws} "
               f"bytes")
         valid = int(length.clamp(max=nblk * bs).sum())
@@ -241,8 +278,11 @@ def check_kernels(torch, seed):
             library_ms=None, bound_ms=b_ms, bound_by=b_by)
         del pk, pv, out, plain, again
 
-        for f_nh, f_nkv, f_hd in flash_shapes(cfg, dt_name):
-            q, k, v = flash_inputs(torch, seed, dt, dev, f_nh, f_nkv, f_hd)
+        shapes = [(nh, nkv, hd)] + (
+            [(32, 8, 128)] if smollm and dt_name == "bfloat16" else [])
+        for f_nh, f_nkv, f_hd in shapes:
+            q, k, v = flash_inputs(torch, seed, dt, dev, f_nh, f_nkv, f_hd,
+                                   max_seq)
             out = flash_attention(q, k, v)
             plain = flash_attention_ref(q, k, v)
             torch.cuda.synchronize()
@@ -263,7 +303,8 @@ def check_kernels(torch, seed):
                                                 **tol)).sum())
                 off_tiled = int((~torch.isclose(out.float(), tiled,
                                                 **tol)).sum())
-                print(f"[kernel] flash_attention {dt_name} hd {f_hd} wgmma: "
+                print(f"[kernel] {arch} flash_attention {dt_name} hd {f_hd} "
+                      f"{f_nh}/{f_nkv} heads wgmma: "
                       f"row error {row_rel} of the row's max |plain| "
                       f"against the plain version in f32 (limit "
                       f"{WGMMA_ROW_REL}); elements outside rtol "
@@ -279,7 +320,7 @@ def check_kernels(torch, seed):
             else:
                 torch.testing.assert_close(out.float(), plain.float(), **tol)
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * item
-            flops = 4 * f_nh * f_hd * MAX_SEQ * (MAX_SEQ + 1) // 2
+            flops = 4 * f_nh * f_hd * max_seq * (max_seq + 1) // 2
             b_ms, b_by = bound_ms(nbytes, flops, dt_name)
             key = dt_name if f_hd == hd else f"{dt_name}_hd{f_hd}"
             res["flash_attention"][key] = dict(
@@ -295,8 +336,8 @@ def check_kernels(torch, seed):
             del q, k, v, out, plain
     for name, by_dt in res.items():
         for dt_name, r in by_dt.items():
-            prev = PREVIOUS_MS.get(name, {}).get(dt_name)
-            print(f"[kernel] {name} {dt_name} {r['shape']}"
+            prev = smollm and PREVIOUS_MS.get(name, {}).get(dt_name)
+            print(f"[kernel] {arch} {name} {dt_name} {r['shape']}"
                   f"{' route ' + r['route'] if 'route' in r else ''}: "
                   f"kernel_ms={r['ms']} plain_ms={r['plain_ms']} "
                   f"library_ms={r['library_ms']} bound_ms={r['bound_ms']} "
@@ -304,6 +345,46 @@ def check_kernels(torch, seed):
                   + (f" [previous kernel: {prev} ms, copied from PERF.md]"
                      if prev else ""))
     return res
+
+
+def serve_run(torch, eng, prompts, max_new, compact_every, wrappers,
+              arrive_every=0):
+    """Serve ``prompts`` on ``eng`` until drained, compact() after every
+    ``compact_every`` finished requests (0: never) and require
+    fragmentation 0 after each.  The prompts arrive all at once
+    (``arrive_every`` 0) or one every ``arrive_every`` engine steps, so
+    that requests finish at different steps and compact() moves the blocks
+    of live sequences.  The wrappers' counts are set to 0 just before.
+    Returns (engine, host seconds, launches)."""
+    pending = list(prompts)
+    if not arrive_every:
+        for p in pending:
+            eng.submit(p, max_new=max_new)
+        pending = []
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = 0
+    t0 = time.perf_counter()
+    done = steps = 0
+    while pending or eng.active or eng.queue:
+        if pending and steps % arrive_every == 0:
+            eng.submit(pending.pop(0), max_new=max_new)
+        eng.step()
+        steps += 1
+        if compact_every and len(eng.finished) > done and \
+                len(eng.finished) % compact_every == 0:
+            frag = eng.fragmentation()
+            eng.compact()
+            after = eng.fragmentation()
+            print(f"[serve] compact() at {len(eng.finished)} finished: "
+                  f"fragmentation {frag} -> {after}")
+            if after != 0.0:
+                raise AssertionError("fragmentation after compact()")
+        done = len(eng.finished)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {w.__name__: w.launches for w in wrappers}
+    return eng, dt, launches
 
 
 def serve_full_width(torch, seed, wrappers):
@@ -323,29 +404,7 @@ def serve_full_width(torch, seed, wrappers):
     def run(compact_every):
         eng = ServingEngine(cfg, max_slots=8, max_seq=2048, seed=seed,
                             scramble_blocks=True, device=DEVICE)
-        for p in prompts:
-            eng.submit(p, max_new=64)
-        torch.cuda.synchronize()
-        for w in wrappers:
-            w.launches = 0
-        t0 = time.perf_counter()
-        done = 0
-        while eng.active or eng.queue:
-            eng.step()
-            if compact_every and len(eng.finished) > done and \
-                    len(eng.finished) % compact_every == 0:
-                frag = eng.fragmentation()
-                eng.compact()
-                after = eng.fragmentation()
-                print(f"[serve] compact() at {len(eng.finished)} finished: "
-                      f"fragmentation {frag} -> {after}")
-                if after != 0.0:
-                    raise AssertionError("fragmentation after compact()")
-            done = len(eng.finished)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        launches = {w.__name__: w.launches for w in wrappers}
-        return eng, dt, launches
+        return serve_run(torch, eng, prompts, 64, compact_every, wrappers)
 
     eng, dt, launches = run(compact_every=8)
     compacted = {r.rid: r.out for r in eng.finished}
@@ -427,17 +486,18 @@ def profile_serving(torch, eng, prompts):
     eng.run_until_drained()
 
 
-def card_matches_cpu(torch, seed):
-    """Phase 4: the f32 full-width engine on the card against the same
-    engine on the CPU (plain versions): identical greedy tokens, or a
-    near-tie (CPU top-2 logit gap < 1e-4) at the first difference."""
+def card_matches_cpu(torch, seed, arch="smollm_135m", smoke=False):
+    """Phase 4 (and 9, at SMOKE width): the f32 engine of ``arch`` on the
+    card against the same engine on the CPU (plain versions): identical
+    greedy tokens, or a near-tie (CPU top-2 logit gap < 1e-4) at the first
+    difference."""
     import numpy as np
 
     from repro_torch.configs import get
     from repro_torch.models import forward, init_params
     from repro_torch.serve.engine import ServingEngine
 
-    cfg = get("smollm_135m").replace(param_dtype="float32")
+    cfg = get(arch, smoke=smoke).replace(param_dtype="float32")
     params = init_params(cfg, seed=seed, device="cpu")
     rng = np.random.default_rng(seed + 1)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
@@ -458,11 +518,95 @@ def card_matches_cpu(torch, seed):
             logits, _ = forward(params, seq, cfg, mode="train")
         top2 = torch.topk(logits[0, -1], 2).values
         gap = float(top2[0] - top2[1])
-        print(f"[f32] request {i} differs at step {step}: CPU top-2 gap {gap}")
+        print(f"[f32] {arch} request {i} differs at step {step}: CPU top-2 "
+              f"gap {gap}")
         if gap >= 1e-4:
             raise AssertionError("card and CPU disagree beyond a near-tie")
-    print(f"[f32] card and CPU greedy tokens: {outs[DEVICE]} vs "
-          f"{outs['cpu']}")
+    print(f"[f32] {arch}{' SMOKE' if smoke else ''}: card and CPU greedy "
+          f"tokens: {outs[DEVICE]} vs {outs['cpu']}")
+
+
+def serve_arch(torch, arch, seed, wrappers, *, requests, max_new,
+               compact_every, n_layers=None):
+    """Phases 7 and 8: ``arch`` at its published width (depth cut to
+    ``n_layers`` where given), bf16, random weights from the seed, served
+    from the paged pool: SLOTS slots, WIDE_SEQ context, scrambled tables,
+    one request arriving every max_new / SLOTS steps (so that the slots
+    stay about full and each compact() moves live sequences).  Requires
+    every request to finish, each kernel's launches to be the path's own
+    count, prefill on the wgmma route, fragmentation 0 after each
+    compact() and the token streams of the run without compaction.
+    Returns {"launches", "init_s", "serve_s", "tok_s"}."""
+    import numpy as np
+
+    from repro_torch.configs import get
+    from repro_torch.kernels.flash_attention.ops import route
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.utils import tree_bytes
+
+    cfg = get(arch)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed, DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(16, 513, requests)]
+    cut = "" if n_layers is None else \
+        f", n_layers cut {get(arch).n_layers} -> {n_layers}"
+
+    def run(every):
+        eng = ServingEngine(cfg, params, max_slots=SLOTS, max_seq=WIDE_SEQ,
+                            seed=seed, scramble_blocks=True, device=DEVICE)
+        return serve_run(torch, eng, prompts, max_new, every, wrappers,
+                         arrive_every=max(1, max_new // SLOTS))
+
+    eng, dt, launches = run(compact_every)
+    if len(eng.finished) != requests or any(
+            len(r.out) != max_new + 1 for r in eng.finished):
+        raise AssertionError(f"{arch}: not every request finished")
+    if eng.compactions != requests // compact_every:
+        raise AssertionError(f"{arch}: {eng.compactions} compactions")
+    expect = {"compact_kv_pool": 2 * eng.compactions,
+              "paged_decode_attention": cfg.n_layers * eng.decode_steps,
+              "flash_attention": cfg.n_layers * requests}
+    if launches != expect:
+        raise AssertionError(f"{arch}: launches {launches}, the path makes "
+                             f"{expect}")
+    prefill_route = route(getattr(torch, cfg.param_dtype), cfg.hd)
+    if prefill_route != "wgmma":
+        raise AssertionError(f"{arch}: prefill takes the {prefill_route} "
+                             "route")
+    new_tokens = sum(len(r.out) - 1 for r in eng.finished)
+    tok_s = (new_tokens + requests) / dt
+    print(f"[serve] {arch} published width{cut}: {cfg.param_count()} params "
+          f"({cfg.active_param_count()} active), {tree_bytes(params)} bytes "
+          f"of bf16 params, KV pool {tree_bytes(eng.caches)} bytes; "
+          f"init_params {init_s} s")
+    print(f"[serve] {arch}: {requests} requests, {new_tokens} decoded tokens "
+          f"+ {requests} prefills of {WIDE_SEQ} in {dt} s = {tok_s} tok/s, "
+          f"{eng.decode_steps} lockstep steps, launches {launches}, prefill "
+          f"route {prefill_route}")
+    streams = {r.rid: r.out for r in eng.finished}
+    for p in prompts[:SLOTS]:
+        eng.submit(p, max_new=max_new)
+    eng.step()
+    profile_window(torch, f"{arch}: 4 decode steps of {SLOTS} slots",
+                   lambda: [eng.step() for _ in range(4)])
+    del eng
+    plain, _, _ = run(0)
+    if {r.rid: r.out for r in plain.finished} != streams:
+        raise AssertionError(f"{arch}: compaction changed a token stream")
+    print(f"[serve] {arch}: tokens equal with and without compaction")
+    del plain, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "init_s": init_s, "serve_s": dt,
+            "tok_s": tok_s}
 
 
 def train_full_width(torch, seed, wrappers):
@@ -755,12 +899,29 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
 
-    res = check_kernels(torch, args.seed)
+    by_arch = {}
+    for arch, max_seq in KERNEL_SHAPES:
+        t0 = time.perf_counter()
+        by_arch[arch] = check_kernels(torch, args.seed, arch, max_seq)
+        print(f"[kernel] {arch}: checked in {time.perf_counter() - t0} s")
+        torch.cuda.empty_cache()
+    res = by_arch.pop("smollm_135m")
     wrappers = (compact_kv_pool, paged_decode_attention, flash_attention)
     launches, tok_s = serve_full_width(torch, args.seed, wrappers)
     card_matches_cpu(torch, args.seed)
     train_launches = train_full_width(torch, args.seed, wrappers)
     train_card_matches_cpu(torch, args.seed)
+    wide = {}
+    for arch, requests, max_new, every in FULL_WIDTH:
+        wide[arch] = serve_arch(torch, arch, args.seed, wrappers,
+                                requests=requests, max_new=max_new,
+                                compact_every=every)
+    for arch in TWO_LAYER:
+        wide[arch] = serve_arch(torch, arch, args.seed, wrappers, requests=8,
+                                max_new=16, compact_every=3, n_layers=2)
+    for arch in ("deepseek_7b", "qwen2_72b", "qwen3_8b", "chameleon_34b",
+                 "olmoe_1b_7b", "dbrx_132b"):
+        card_matches_cpu(torch, args.seed, arch, smoke=True)
 
     from repro_torch.kernels.flash_attention.ops import ROUTES
     kernels = []
@@ -779,6 +940,10 @@ def main() -> int:
             "replaces": replaces,
             "launches": launches[name],
             "train_launches": train_launches[name],
+            # each serving phase's own count (set to 0 just before it)
+            "launches_by_phase": {"smollm_135m": launches[name],
+                                  **{a: w["launches"][name]
+                                     for a, w in wide.items()}},
             "max_abs_err": bf["max_abs_err"],
             "ms": bf["ms"], "plain_ms": bf["plain_ms"],
             "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
@@ -787,6 +952,10 @@ def main() -> int:
             "float32": {k: f32[k] for k in ("max_abs_err", "ms", "plain_ms",
                                             "bound_ms", "bound_by",
                                             "library_ms")}}
+        # the bf16 numbers at the other serving phases' head layouts
+        entry["by_arch"] = {arch: {k: r[name]["bfloat16"][k] for k in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")} for arch, r in by_arch.items()}
         if name == "paged_decode_attention":
             entry["splits"] = bf["splits"]
             entry["workspace_bytes"] = bf["workspace_bytes"]
@@ -802,7 +971,9 @@ def main() -> int:
                                          "library_ms")}}
                 for k, r in res[name].items()}
         kernels.append(entry)
-    print(f"[done] {time.perf_counter() - t_start} s, serving {tok_s} tok/s")
+    print(f"[done] {time.perf_counter() - t_start} s, serving {tok_s} tok/s; "
+          + "; ".join(f"{a} init {w['init_s']} s, serving {w['serve_s']} s, "
+                      f"{w['tok_s']} tok/s" for a, w in wide.items()))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

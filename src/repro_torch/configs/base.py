@@ -4,7 +4,8 @@ Every architecture the port runs gets one module in ``repro_torch/configs``
 exporting ``CONFIG`` (the exact published figures) and ``SMOKE`` (a reduced
 config of the same family for CPU tests).  ``repro_torch.configs.get(name)``
 resolves either.  ``ModelConfig`` keeps every field of the JAX schema, so a
-config carries over field for field; the port runs the ``ATTN`` block kind.
+config carries over field for field; the port runs the ``ATTN`` and
+``ATTN_MOE`` block kinds.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import importlib
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-# Block kinds of the schema; repro_torch.models.transformer runs ATTN
+# Block kinds of the schema; repro_torch.models.transformer runs ATTN and
+# ATTN_MOE
 ATTN = "attn"          # GQA attention + MLP (dense transformer layer)
 ATTN_MOE = "attn_moe"  # GQA attention + MoE FFN
 MAMBA2 = "mamba2"      # Mamba-2 (SSD) block
@@ -150,6 +152,15 @@ class ModelConfig:
             total += attn + mlp  # one shared block
         return int(total)
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        if not self.is_moe:
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        dead = self.n_experts * 3 * d * ff - self.top_k * 3 * d * ff
+        n_moe_layers = sum(1 for k in self.pattern_for_layers() if k == ATTN_MOE)
+        return int(self.param_count() - dead * n_moe_layers)
+
 
 @dataclass(frozen=True)
 class ShapeConfig:
@@ -167,8 +178,12 @@ SHAPES = {
 }
 
 
-# the architectures this port runs (the JAX package's ARCH_IDS has more)
-ARCH_IDS = ["smollm_135m"]
+# the architectures this port runs: the JAX package's ARCH_IDS in its order,
+# without zamba2_1p2b and xlstm_125m (ROADMAP Queue 1 items 9.3 and 9.4)
+ARCH_IDS = [
+    "smollm_135m", "deepseek_7b", "qwen2_72b", "qwen3_8b", "musicgen_medium",
+    "chameleon_34b", "olmoe_1b_7b", "dbrx_132b",
+]
 
 
 def get(name: str, smoke: bool = False) -> ModelConfig:

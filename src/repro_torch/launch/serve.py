@@ -4,16 +4,20 @@
       --arch smollm_135m --requests 8 --max-new 12 --compact-every 4
 
 ``--device cpu --smoke`` runs the plain versions of the kernels on the CPU.
+``--arch`` takes every architecture of ``repro_torch.configs.ARCH_IDS``; an
+embeds-input one (musicgen_medium) is refused, as the engine refuses it.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+from repro_torch.configs import ARCH_IDS
+
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm_135m")
+    ap.add_argument("--arch", default="smollm_135m", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)
@@ -29,9 +33,13 @@ def main():
     import torch
 
     from repro_torch.configs import get
-    from repro_torch.serve.engine import ServingEngine
+    from repro_torch.serve.engine import ServingEngine, require_token_input
 
     cfg = get(args.arch, smoke=args.smoke)
+    try:
+        require_token_input(cfg)
+    except ValueError as e:
+        ap.error(str(e))
     eng = ServingEngine(cfg, max_slots=args.slots, max_seq=args.max_seq,
                         seed=args.seed, device=args.device)
     rng = np.random.default_rng(args.seed)

@@ -1,16 +1,21 @@
-"""GQA attention: causal train/prefill attention + paged-cache decode.
+"""GQA attention: causal train/prefill attention + dense- or paged-cache
+decode.
 
-The paged cache mirrors the paper's storage states: a block pool
-(B, n_blocks, block, n_kv, hd) is the scattered ValueLog and the per-sequence
-int32 block table (logical -> physical) is the key->offset index.
+Two cache layouts, as in the JAX package.  "dense" holds k/v of
+(B, max_seq, n_kv, hd).  "paged" mirrors the paper's storage states: a block
+pool (B, n_blocks, block, n_kv, hd) is the scattered ValueLog and the
+per-sequence int32 block table (logical -> physical) is the key->offset
+index.
 
 Train mode runs ``chunked_causal_attention``, the JAX package's query-chunked
 f32 attention written in PyTorch, on every device: it is differentiable, and
 the JAX package reaches no kernel in train mode either.  Prefill goes
-through the ``flash_attention`` wrapper and decode through
+through the ``flash_attention`` wrapper and paged decode through
 ``paged_decode_attention``, which reads the block table itself: for CUDA
 tensors they launch the hand-written kernels (forward only: they raise on
 inputs that require grad); for CPU tensors they run the plain versions.
+Dense decode is ``_decode_attend``, plain PyTorch on every device: the JAX
+package reaches no kernel there either.
 
 Unlike the functional JAX package, cache writes happen in place: the
 pool tensors passed in are updated and returned.
@@ -128,12 +133,23 @@ def flash_prefill_attention(q, k, v):
     return o.transpose(1, 2)
 
 
-# ------------------------------------------------------------ cache layout
-def init_attn_cache(cfg, batch: int, max_seq: int, device="cuda"):
-    """The paged layout: pools (batch, n_blk, bs, nkv, hd) and an identity
-    int32 table (batch, n_blk)."""
+# ----------------------------------------------------------- cache layouts
+def init_attn_cache(cfg, batch: int, max_seq: int, layout: str,
+                    device="cuda"):
+    """The cache of one attention layer.  Layout "dense": k/v of
+    (batch, max_seq, nkv, hd).  "paged": pools (batch, n_blk, bs, nkv, hd)
+    and an identity int32 table (batch, n_blk)."""
     nkv, hd, bs = cfg.n_kv_heads, cfg.hd, cfg.kv_block_size
     dt = param_dtype(cfg)
+    if layout == "dense":
+        return {
+            "k": torch.zeros((batch, max_seq, nkv, hd), dtype=dt,
+                             device=device),
+            "v": torch.zeros((batch, max_seq, nkv, hd), dtype=dt,
+                             device=device),
+        }
+    if layout != "paged":
+        raise ValueError(f"layout={layout!r}")
     n_blk = max_seq // bs
     return {
         "pool_k": torch.zeros((batch, n_blk, bs, nkv, hd), dtype=dt,
@@ -146,35 +162,94 @@ def init_attn_cache(cfg, batch: int, max_seq: int, device="cuda"):
     }
 
 
+def _decode_attend(q, k_all, v_all, pos_b, nh):
+    """q: (B, 1, nh, hd) against the whole dense cache (B, S, nkv, hd),
+    masked to positions <= pos_b (B,).  Returns (B, 1, nh * hd) in f32.
+
+    Grouped, as the JAX function: the cache is read once, the (nkv, rep)
+    head split touches only q."""
+    B, S, nkv, hd = k_all.shape
+    rep = nh // nkv
+    scale = hd ** -0.5
+    qg = q.reshape(B, 1, nkv, rep, hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(), k_all.float()) * scale
+    mask = torch.arange(S, device=q.device)[None, :] <= pos_b[:, None]
+    s = torch.where(mask[:, None, None, None, :], s, NEG_INF)
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = torch.einsum("bgrqk,bkgd->bqgrd", p, v_all.float())
+    den = torch.sum(p, dim=-1)[..., None].permute(0, 3, 1, 2, 4)
+    o = o / torch.clamp(den, min=1e-30)
+    return o.reshape(B, 1, nh * hd)
+
+
+def _write_rows(buf, idx, inside, new):
+    """buf[idx] = new where ``inside``, else unchanged: an out-of-range row
+    (clamped by the caller) drops its write, as JAX drops an out-of-range
+    scatter."""
+    buf[idx] = torch.where(inside, new.to(buf.dtype), buf[idx])
+
+
 def attn_decode(params, cache, x, pos, cfg):
     """One-token decode. x: (B, 1, d); pos: scalar OR per-sequence (B,)
     position (continuous batching serves ragged sequences in one lockstep
     batch).
 
-    The new K/V go to slot ``pos % bs`` of block ``table[pos // bs]``.  A
-    position at or past the pool's end (a freed slot left at
-    ``pos == max_seq``) has no block: its write is dropped, as JAX drops an
-    out-of-range scatter, and its attention reads the whole pool."""
+    Dense: the new K/V go to row ``pos`` and attention reads the cache up
+    to ``pos``.  Paged: they go to slot ``pos % bs`` of block
+    ``table[pos // bs]``.  A position at or past the cache's end (a freed
+    slot left at ``pos == max_seq``) has no row: its write is dropped, as
+    JAX drops an out-of-range scatter, and its attention reads the whole
+    cache."""
     B = x.shape[0]
     nh, hd, bs = cfg.n_heads, cfg.hd, cfg.kv_block_size
     pos_b = torch.as_tensor(pos, device=x.device).long().reshape(-1).expand(B)
     q, k_new, v_new = _project_qkv(params, x, cfg, pos_b[:, None])
-    pool_k, pool_v, table = cache["pool_k"], cache["pool_v"], cache["table"]
-    nblk = table.shape[1]
     bi = torch.arange(B, device=x.device)
-    logical = pos_b // bs
-    inside = (logical < nblk)[:, None, None]
-    blk = table[bi, logical.clamp(max=nblk - 1)].long()
-    slot = pos_b % bs
-    pool_k[bi, blk, slot] = torch.where(inside, k_new[:, 0].to(pool_k.dtype),
-                                        pool_k[bi, blk, slot])
-    pool_v[bi, blk, slot] = torch.where(inside, v_new[:, 0].to(pool_v.dtype),
-                                        pool_v[bi, blk, slot])
-    length = (pos_b + 1).to(torch.int32)
-    o = paged_decode_attention(q[:, 0].contiguous(), pool_k, pool_v, table,
-                               length)
+    if "k" in cache:
+        S = cache["k"].shape[1]
+        inside = (pos_b < S)[:, None, None]
+        row = pos_b.clamp(max=S - 1)
+        _write_rows(cache["k"], (bi, row), inside, k_new[:, 0])
+        _write_rows(cache["v"], (bi, row), inside, v_new[:, 0])
+        o = _decode_attend(q, cache["k"], cache["v"], pos_b, nh)
+    else:
+        pool_k, pool_v, table = cache["pool_k"], cache["pool_v"], \
+            cache["table"]
+        nblk = table.shape[1]
+        logical = pos_b // bs
+        inside = (logical < nblk)[:, None, None]
+        blk = table[bi, logical.clamp(max=nblk - 1)].long()
+        slot = pos_b % bs
+        _write_rows(pool_k, (bi, blk, slot), inside, k_new[:, 0])
+        _write_rows(pool_v, (bi, blk, slot), inside, v_new[:, 0])
+        length = (pos_b + 1).to(torch.int32)
+        o = paged_decode_attention(q[:, 0].contiguous(), pool_k, pool_v,
+                                   table, length)
     out = o.reshape(B, 1, nh * hd).to(x.dtype) @ params["wo_attn"]
     return out, cache
+
+
+def _prefill_write(cache, k, v, cfg):
+    """Write prefill K/V (B, S, nkv, hd) into the cache: rows 0..S-1 of the
+    dense layout, or whole blocks through the paged layout's tables."""
+    B, S = k.shape[:2]
+    if "k" in cache:
+        cache["k"][:, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :S] = v.to(cache["v"].dtype)
+        return
+    bs = cfg.kv_block_size
+    if S % bs:
+        raise ValueError(f"prefill length {S} must be a multiple of the "
+                         f"KV block size {bs}")
+    kb = k.reshape(B, S // bs, bs, *k.shape[2:])
+    vb = v.reshape(B, S // bs, bs, *v.shape[2:])
+    # write THROUGH the block table (physical placement may be scattered:
+    # the serving allocator owns the table)
+    dest = cache["table"][:, :S // bs].long()                # (B, nwb)
+    bi = torch.arange(B, device=k.device)[:, None]
+    cache["pool_k"][bi, dest] = kb.to(cache["pool_k"].dtype)
+    cache["pool_v"][bi, dest] = vb.to(cache["pool_v"].dtype)
 
 
 def attn_apply(params, x, cfg, *, mode="train", cache=None, pos=None):
@@ -190,16 +265,5 @@ def attn_apply(params, x, cfg, *, mode="train", cache=None, pos=None):
         o = flash_prefill_attention(q, k, v)
     out = o.reshape(B, S, -1) @ params["wo_attn"]
     if mode == "prefill" and cache is not None:
-        bs = cfg.kv_block_size
-        if S % bs:
-            raise ValueError(f"prefill length {S} must be a multiple of the "
-                             f"KV block size {bs}")
-        kb = k.reshape(B, S // bs, bs, *k.shape[2:])
-        vb = v.reshape(B, S // bs, bs, *v.shape[2:])
-        # write THROUGH the block table (physical placement may be
-        # scattered: the serving allocator owns the table)
-        dest = cache["table"][:, :S // bs].long()            # (B, nwb)
-        bi = torch.arange(B, device=x.device)[:, None]
-        cache["pool_k"][bi, dest] = kb.to(cache["pool_k"].dtype)
-        cache["pool_v"][bi, dest] = vb.to(cache["pool_v"].dtype)
+        _prefill_write(cache, k, v, cfg)
     return out, cache

@@ -21,7 +21,7 @@ def dense_init(gen: torch.Generator, shape, dtype, fan_in=None):
     """Normal(0, 1/fan_in) drawn in f32 from ``gen`` on the CPU, then cast."""
     fan_in = fan_in if fan_in is not None else shape[0]
     w = torch.randn(shape, generator=gen, dtype=torch.float32)
-    return (w / math.sqrt(fan_in)).to(dtype)
+    return w.div_(math.sqrt(fan_in)).to(dtype)
 
 
 # ----------------------------------------------------------------- RMSNorm
@@ -78,28 +78,30 @@ def mlp(params, x, cfg):
 
 
 # -------------------------------------------------------------- Embeddings
-def _tokens_only(cfg):
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            f"input_kind={cfg.input_kind!r} is not ported yet "
-            "(ROADMAP Queue 1 item 9: embeds input)")
-
-
 def embed_init(gen, cfg):
-    _tokens_only(cfg)
+    """Token embedding (none for ``input_kind="embeds"``: the frontend hands
+    in (B, S, d) embeddings) and, untied, the output head."""
     dt = param_dtype(cfg)
-    p = {"embedding": dense_init(gen, (cfg.vocab_size, cfg.d_model), dt,
-                                 fan_in=cfg.d_model)}
+    p = {}
+    if cfg.input_kind == "tokens":
+        p["embedding"] = dense_init(gen, (cfg.vocab_size, cfg.d_model), dt,
+                                    fan_in=cfg.d_model)
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt)
     return p
 
 
-def embed(params, tokens, cfg):
-    _tokens_only(cfg)
-    return params["embedding"][tokens]
+def embed(params, tokens_or_embeds, cfg):
+    """(B, S) int tokens -> (B, S, d); (B, S, d) embeds are cast to the
+    param dtype."""
+    if cfg.input_kind == "tokens":
+        return params["embedding"][tokens_or_embeds]
+    return tokens_or_embeds.to(param_dtype(cfg))
 
 
 def unembed(params, x, cfg):
-    w = params["embedding"].T if cfg.tie_embeddings else params["unembed"]
+    if cfg.tie_embeddings and cfg.input_kind == "tokens":
+        w = params["embedding"].T
+    else:
+        w = params["unembed"]
     return x @ w

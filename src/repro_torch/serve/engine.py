@@ -31,6 +31,18 @@ from repro_torch.models import forward, init_cache, init_params
 from repro_torch.utils import tree_map, tree_paths
 
 
+def require_token_input(cfg: ModelConfig):
+    """Raise ValueError for a config whose input is not tokens: the engine
+    admits token prompts only.  The JAX package's engine cannot admit such
+    a config either: its prefill feeds int tokens where the model takes
+    (B, S, d) embeds."""
+    if cfg.input_kind != "tokens":
+        raise ValueError(
+            f"{cfg.name} takes input_kind={cfg.input_kind!r}: the serving "
+            "engine admits token prompts only (the JAX package's engine "
+            "cannot admit it either)")
+
+
 @dataclass
 class Request:
     rid: int
@@ -56,7 +68,8 @@ class ServingEngine:
         self.params = (tree_map(lambda t: t.to(self.device), params)
                        if params is not None
                        else init_params(cfg, seed, self.device))
-        self.caches = init_cache(cfg, max_slots, max_seq, device=self.device)
+        self.caches = init_cache(cfg, max_slots, max_seq, "paged",
+                                 device=self.device)
         self.pos = np.zeros(max_slots, np.int64)
         self.active: Dict[int, Request] = {}
         self.queue: "collections.deque[Request]" = collections.deque()
@@ -68,6 +81,7 @@ class ServingEngine:
 
     # ------------------------------------------------------------- client
     def submit(self, prompt: List[int], max_new: int = 16) -> Request:
+        require_token_input(self.cfg)
         if not prompt or len(prompt) + max_new > self.max_seq:
             raise ValueError(f"prompt of {len(prompt)} tokens + {max_new} new "
                              f"must be 1..{self.max_seq} tokens")

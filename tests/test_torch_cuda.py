@@ -13,6 +13,8 @@ to bf16 before P @ V, which flash_attention_ref does not: each output row is
 held to WGMMA_ROW_REL of its largest value in the plain version run in f32
 (see kernels/flash_attention/ops.py).
 
+The olmoe_1b_7b engine (MoE, qk-norm) on the card against the CPU.
+
 The training path on the card: a full-width step where every parameter
 gets a finite gradient, the wrappers refusing inputs that require grad
 (their kernels have no backward), and the crash -> restore drill with
@@ -91,7 +93,9 @@ def _perms(gen, dev, rows, nblk):
     (1, 32, 8, 300, 128, BF16, True),
     (2, 9, 3, 200, 64, BF16, True),
     (1, 9, 3, 200, 64, BF16, False),    # non-causal, ragged
-    (1, 32, 8, 2048, 128, BF16, True),  # the next dense configs' heads
+    (1, 32, 8, 2048, 128, BF16, True),  # qwen3_8b's heads (rep 4)
+    (1, 64, 8, 2048, 128, BF16, True),  # qwen2_72b / chameleon_34b (rep 8)
+    (1, 48, 8, 2048, 128, BF16, True),  # dbrx_132b (rep 6)
     # cuda-core route in bf16: hd 16 and 256
     (2, 9, 3, 200, 16, BF16, True),
     (1, 4, 2, 192, 256, BF16, True),
@@ -116,6 +120,13 @@ def test_flash_kernel_matches_plain(dev, B, nh, nkv, S, hd, dt, causal):
     (4, 2, 2, 2, 64, 128, F32),
     (8, 9, 3, 32, 64, 64, BF16),        # the serving decode shape
     (8, 9, 3, 32, 64, 64, F32),
+    # hd 128 at the heads of qwen3_8b (rep 4), qwen2_72b / chameleon_34b
+    # (rep 8) and dbrx_132b (rep 6); f32 at rep 8 needs more than 48 KiB of
+    # shared memory
+    (8, 32, 8, 64, 64, 128, BF16),
+    (8, 64, 8, 64, 64, 128, BF16),
+    (8, 48, 8, 64, 64, 128, BF16),
+    (8, 64, 8, 64, 64, 128, F32),
 ])
 def test_paged_kernel_matches_plain(dev, B, nh, nkv, nblk, bs, hd, dt):
     gen = torch.Generator().manual_seed(nblk * bs + hd)
@@ -195,6 +206,30 @@ def test_card_engine_matches_cpu_engine(dev):
     cfg = get("smollm_135m", smoke=True).replace(
         param_dtype="float32", kv_block_size=8, n_heads=9, n_kv_heads=3,
         head_dim=16)
+    params = init_params(cfg, seed=0, device="cpu")
+    runs = []
+    for d in (dev, "cpu"):
+        eng = ServingEngine(cfg, params, max_slots=3, max_seq=64, seed=0,
+                            device=d)
+        reqs = [eng.submit(p, max_new=6) for p in
+                ([5, 9, 2, 7], [1, 2, 3], [11, 4, 6, 8, 10], [3, 3], [9, 1])]
+        eng.run_until_drained()
+        frag = eng.fragmentation()
+        eng.compact()
+        again = eng.submit([5, 9, 2, 7], max_new=6)
+        eng.run_until_drained()
+        runs.append(([r.out for r in reqs], frag, again.out))
+    assert runs[0] == runs[1]
+
+
+def test_card_moe_engine_matches_cpu_engine(dev):
+    """f32 olmoe_1b_7b SMOKE (8 experts, top 2, qk-norm): the engine on the
+    card and on the CPU give the same greedy tokens and layout, before and
+    after compact()."""
+    from repro_torch.models import init_params
+    from repro_torch.serve.engine import ServingEngine
+    cfg = get("olmoe_1b_7b", smoke=True).replace(param_dtype="float32",
+                                                 kv_block_size=8)
     params = init_params(cfg, seed=0, device="cpu")
     runs = []
     for d in (dev, "cpu"):

@@ -108,7 +108,7 @@ def test_train_prefill_decode_logits_match_jax(name):
     np.testing.assert_allclose(out.numpy(), _np(ref), **LOGIT_TOL)
 
     jcache = jax_init_cache(jcfg, B, 32, "paged")
-    cache = init_cache(cfg, B, 32, device="cpu")
+    cache = init_cache(cfg, B, 32, "paged", device="cpu")
     jpre, jcache = jax_forward(jp, jnp.asarray(x[:, :S]), jcfg,
                                mode="prefill", caches=jcache)
     pre, cache = forward(tp, torch.from_numpy(x[:, :S]), cfg,
@@ -164,7 +164,7 @@ def test_decode_at_pool_end_drops_write_and_spares_live_slots():
     p = {k: v[0] for k, v in tp["layers"][0]["attn"].items()}
     max_seq, bs = 32, cfg.kv_block_size
     rng = np.random.default_rng(4)
-    cache = init_attn_cache(cfg, 2, max_seq, device="cpu")
+    cache = init_attn_cache(cfg, 2, max_seq, "paged", device="cpu")
     for leaf in ("pool_k", "pool_v"):
         cache[leaf].copy_(torch.from_numpy(
             rng.standard_normal(cache[leaf].shape).astype(np.float32)))

@@ -2,7 +2,8 @@
 
 Each scenario of tests/test_serving.py is replayed on both engines with the
 same JAX-built params and the same seed: the greedy token streams and the
-``fragmentation()`` readings must be identical.  The port runs with
+``fragmentation()`` readings must be identical.  smollm_135m throughout, and
+qwen3_8b and olmoe_1b_7b at SMOKE width once each.  The port runs with
 ``device="cpu"``, i.e. the plain versions of its kernels.
 """
 import jax
@@ -15,6 +16,7 @@ from repro.serve.engine import ServingEngine as JaxEngine
 from repro_torch.configs import get
 from repro_torch.convert import params_from_numpy
 from repro_torch.serve.engine import ServingEngine
+from repro_torch.utils import tree_paths
 
 CFG = get("smollm_135m", smoke=True).replace(param_dtype="float32",
                                              kv_block_size=8)
@@ -128,3 +130,56 @@ def test_free_slot_at_max_seq_matches_jax_engine(engines):
         eng.run_until_drained()
     assert len(teng.finished) == 3
     _same(jeng, teng)
+
+
+def _arch(arch):
+    """(port cfg, JAX cfg, JAX params, torch params) of ``arch``'s f32
+    SMOKE config with KV blocks of 8."""
+    kw = dict(param_dtype="float32", kv_block_size=8)
+    jcfg = jax_get(arch, smoke=True).replace(**kw)
+    jp = jax_init_params(jax.random.PRNGKey(0), jcfg)
+    return (get(arch, smoke=True).replace(**kw), jcfg, jp,
+            params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu"))
+
+
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "qwen3_8b"])
+def test_serving_engine_matches_jax_engine(arch):
+    """The qk-norm GQA config and the MoE config at SMOKE width:
+    continuous batching, fragmentation, compaction and the tables after
+    it, then a request served from the compacted pool."""
+    cfg, jcfg, jp, tp = _arch(arch)
+    jeng = JaxEngine(jcfg, jp, max_slots=2, max_seq=64, seed=1)
+    teng = ServingEngine(cfg, tp, max_slots=2, max_seq=64, seed=1,
+                         device="cpu")
+    for eng in (jeng, teng):
+        for p in ([5, 9, 2, 7], [1, 2, 3], [11, 4, 6, 8, 10], [3, 3]):
+            eng.submit(p, max_new=5)
+        eng.run_until_drained()
+    assert {r.rid: r.out for r in teng.finished} == \
+        {r.rid: r.out for r in jeng.finished}
+    assert teng.fragmentation() == jeng.fragmentation() > 0.3
+    jeng.compact(backend="reference")
+    teng.compact()
+    assert teng.fragmentation() == jeng.fragmentation() == 0.0
+    for (n, a), (_, b) in zip(tree_paths(teng.caches),
+                              tree_paths(jeng.caches)):
+        if n.endswith("table"):
+            assert np.array_equal(a.numpy(), np.asarray(b)), n
+    for eng in (jeng, teng):
+        eng.submit([5, 9, 2, 7], max_new=5)
+        eng.run_until_drained()
+    assert {r.rid: r.out for r in teng.finished} == \
+        {r.rid: r.out for r in jeng.finished}
+
+
+def test_engine_refuses_embeds_input_as_the_jax_engine_fails():
+    """musicgen_medium takes (B, S, d) embeds: the port's submit raises;
+    the JAX engine takes the request and fails at its prefill."""
+    cfg, jcfg, jp, tp = _arch("musicgen_medium")
+    eng = ServingEngine(cfg, tp, max_slots=2, max_seq=32, device="cpu")
+    with pytest.raises(ValueError, match="embeds"):
+        eng.submit([1, 2, 3], max_new=4)
+    jeng = JaxEngine(jcfg, jp, max_slots=2, max_seq=32)
+    jeng.submit([1, 2, 3], max_new=4)
+    with pytest.raises(ValueError):
+        jeng.step()
